@@ -1,0 +1,143 @@
+"""MMTM_MVCNN — N-tower multi-view CNN with MMTM fusion at three depths
+(``greedy_multimodal_learning_tpu/models/mvcnn.py``): per-view ResNet-18
+towers, MMTM fusion after layer groups 2/3/4 at widths 128/256/512 (ratio
+4), global-average heads, blended logits ``mean(per-view logits)``.
+
+The input keeps the JAX package's (B, num_towers, H, W, C) layout; each
+tower runs on NCHW maps in ``torch.channels_last`` memory.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+from torch import nn
+
+from .. import config as cfg
+from .fusion import FUSION_WIDTHS, fused_towers_forward
+from .mmtm import MMTM, mmtm_config_kwargs
+from .resnet import ResNet18Trunk
+
+# ModelNet40 class names.
+MODELNET40_CLASSNAMES = [
+    "airplane", "bathtub", "bed", "bench", "bookshelf", "bottle", "bowl", "car", "chair",
+    "cone", "cup", "curtain", "desk", "door", "dresser", "flower_pot", "glass_box",
+    "guitar", "keyboard", "lamp", "laptop", "mantel", "monitor", "night_stand",
+    "person", "piano", "plant", "radio", "range_hood", "sink", "sofa", "stairs",
+    "stool", "table", "tent", "toilet", "tv_stand", "vase", "wardrobe", "xbox",
+]
+
+DEFAULT_MODALITY_NAMES = ("visual", "skeleton")
+
+
+class MMTMMVCNN(nn.Module):
+    """N-tower ResNet-18 + MMTM fusion model.  Submodules are named
+    ``net_view_<i>`` and ``mmtm<2|3|4>`` as in the JAX package."""
+
+    def __init__(
+        self,
+        nclasses: int = 40,
+        num_towers: int = 2,
+        modality_names: Sequence[str] = DEFAULT_MODALITY_NAMES,
+        mmtm_ratio: float = 4.0,
+        SEonly: bool = False,
+        shareweight: bool = False,
+        bug_compat: bool = True,
+        use_pallas: bool = False,
+        saving_mmtm_scales: bool = False,
+        saving_mmtm_squeeze_array: bool = False,
+        dtype: torch.dtype = torch.float32,
+    ):
+        super().__init__()
+        self.num_towers = num_towers
+        self.modality_names = tuple(modality_names)
+        self.saving_mmtm_scales = saving_mmtm_scales
+        self.saving_mmtm_squeeze_array = saving_mmtm_squeeze_array
+        self.dtype = dtype
+        for i in range(num_towers):
+            setattr(self, f"net_view_{i}", ResNet18Trunk(nclasses))
+        for li, w in FUSION_WIDTHS.items():
+            mmtm = MMTM(
+                dims=[w] * num_towers,
+                ratio=mmtm_ratio,
+                modality_names=self.modality_names,
+                SEonly=SEonly,
+                shareweight=shareweight,
+                bug_compat=bug_compat,
+                use_pallas=use_pallas,
+            )
+            setattr(self, f"mmtm{li}", mmtm)
+
+    @property
+    def towers(self):
+        return [getattr(self, f"net_view_{i}") for i in range(self.num_towers)]
+
+    @property
+    def mmtms(self):
+        return {li: getattr(self, f"mmtm{li}") for li in FUSION_WIDTHS}
+
+    def forward(
+        self,
+        x,
+        curation_mode=None,
+        caring_modality=None,
+        *,
+        valid_mask: Optional[torch.Tensor] = None,
+        mmtm_state: Optional[dict] = None,
+    ):
+        """x: (B, num_towers, H, W, C) image stack.
+
+        Returns (blend_logits, [per-view logits], scales, squeezed_mps).
+        ``mmtm_state``: see :func:`~.fusion.fused_towers_forward`."""
+        x = x.to(self.dtype)
+        towers = self.towers
+        feats = []
+        for i, tower in enumerate(towers):
+            xi = x[:, i].permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+            feats.append(tower.layer(1, tower.stem(xi)))
+        return fused_towers_forward(
+            towers,
+            self.mmtms,
+            feats,
+            curation_mode=curation_mode,
+            caring_modality=caring_modality,
+            valid_mask=valid_mask,
+            saving_scales=self.saving_mmtm_scales,
+            saving_squeezes=self.saving_mmtm_squeeze_array,
+            mmtm_state=mmtm_state,
+        )
+
+
+def build_model_from_config(dtype=None) -> MMTMMVCNN:
+    """Construct the model from the ``MMTM_MVCNN`` and ``MMTM_mitigate`` gin
+    surface.  Options the port does not carry yet raise."""
+    q = lambda p, d: cfg.query("MMTM_MVCNN", p, d)
+    if q("pretraining", False):
+        raise NotImplementedError(
+            "MMTM_MVCNN.pretraining=True needs local torchvision resnet18 weights, which the port "
+            "does not load yet; load a checkpoint with predict_.pretrained_weights_path instead"
+        )
+    if q("stem_s2d", False):
+        raise NotImplementedError("MMTM_MVCNN.stem_s2d is not ported yet (see ROADMAP.md)")
+    mk = mmtm_config_kwargs()
+    num_towers = int(q("num_views", 2))
+    names = cfg.query("Bias_Mitigation_Strong", "MMTMnames", None) or list(DEFAULT_MODALITY_NAMES)
+    if len(names) != num_towers:
+        names = list(DEFAULT_MODALITY_NAMES) if num_towers == 2 else [f"modal_{i}" for i in range(num_towers)]
+    dtype_name = q("compute_dtype", "float32") if dtype is None else dtype
+    torch_dtype = getattr(torch, dtype_name) if isinstance(dtype_name, str) else dtype_name
+    if not isinstance(torch_dtype, torch.dtype) or not torch_dtype.is_floating_point:
+        raise ValueError(f"MMTM_MVCNN.compute_dtype must name a floating torch dtype, got {dtype_name!r}")
+    return MMTMMVCNN(
+        nclasses=int(q("nclasses", 40)),
+        num_towers=num_towers,
+        modality_names=tuple(names),
+        SEonly=mk["SEonly"],
+        shareweight=mk["shareweight"],
+        bug_compat=mk["bug_compat"],
+        use_pallas=mk["use_pallas"],
+        saving_mmtm_scales=bool(q("saving_mmtm_scales", False)),
+        saving_mmtm_squeeze_array=bool(q("saving_mmtm_squeeze_array", False)),
+        dtype=torch_dtype,
+    )

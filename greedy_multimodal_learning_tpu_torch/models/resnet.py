@@ -1,0 +1,65 @@
+"""ResNet-18 trunk with the split ``stem`` / ``layer(i)`` / ``head`` API
+(``greedy_multimodal_learning_tpu/models/resnet.py:78-157``).
+
+Module and attribute names are torchvision's, which is also the state_dict
+naming the JAX package writes (``engine/checkpoint.py:42-82``), so a
+JAX-written checkpoint loads with ``load_state_dict`` directly.  Activations
+are NCHW tensors in ``torch.channels_last`` memory, so a (B, C, H, W) map is
+the JAX package's (B, H, W, C) layout underneath.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .layers import BatchNorm2d, Conv2d, Linear, conv1x1, conv3x3
+
+
+class BasicBlock(nn.Module):
+    def __init__(self, cin, cout, stride=1, downsample=False):
+        super().__init__()
+        self.conv1 = conv3x3(cin, cout, stride)
+        self.bn1 = BatchNorm2d(cout)
+        self.conv2 = conv3x3(cout, cout, 1)
+        self.bn2 = BatchNorm2d(cout)
+        self.downsample = nn.Sequential(conv1x1(cin, cout, stride), BatchNorm2d(cout)) if downsample else None
+
+    def forward(self, x):
+        identity = x if self.downsample is None else self.downsample(x)
+        out = torch.relu(self.bn1(self.conv1(x)))
+        out = self.bn2(self.conv2(out))
+        return torch.relu(out + identity)
+
+
+class ResNet18Trunk(nn.Module):
+    """Stem + 4 layer groups + global-average head of torchvision resnet18,
+    each stage callable separately for fusion interleaving."""
+
+    WIDTHS = (64, 128, 256, 512)
+
+    def __init__(self, nclasses: int = 40):
+        super().__init__()
+        self.conv1 = Conv2d(3, 64, 7, 2, 3, bias=False)
+        self.bn1 = BatchNorm2d(64)
+        cin = 64
+        for li, width in enumerate(self.WIDTHS):
+            stride = 1 if li == 0 else 2
+            blocks = [BasicBlock(cin, width, stride, downsample=li > 0), BasicBlock(width, width)]
+            setattr(self, f"layer{li + 1}", nn.Sequential(*blocks))
+            cin = width
+        self.fc = Linear(512, nclasses)
+
+    def stem(self, x):
+        x = torch.relu(self.bn1(self.conv1(x)))
+        return F.max_pool2d(x, 3, 2, 1)
+
+    def layer(self, i: int, x):
+        """Run layer group i (1-based, mirroring torchvision layer1..layer4)."""
+        return getattr(self, f"layer{i}")(x)
+
+    def head(self, x):
+        """Global average pool in float32, cast to the compute dtype, then fc
+        (``resnet.py:148-151``)."""
+        return self.fc(x.mean(dim=(2, 3), dtype=torch.float32).to(x.dtype))
