@@ -6,10 +6,11 @@
 Imports only the port (``greedy_multimodal_learning_tpu_torch``), never jax.
 Phases, each of which fails the run (non-zero exit) when it fails:
 
-1. the card's name and power limit; build every CUDA kernel of the serving
-   path from the sources in this checkout; TF32 off for the float32 phases;
-2. each kernel against its plain PyTorch version on the card at the shapes
-   the serving path gives it (the three 224² fusion sites at B=128, plus a
+1. the card's name and power limit; build every CUDA kernel (the gating
+   forward and backward, one ``nvcc`` each, started together) from the
+   sources in this checkout; TF32 off for the float32 phases;
+2. the forward kernel against its plain PyTorch version on the card at the
+   shapes the model gives it (the three 224² fusion sites at B=128, plus a
    ragged B=5), float32 and bfloat16, with times from CUDA events;
 3. the serving path at full width: ``predict_`` with
    ``configs/training_guided.gin`` + ``MMTM_mitigate.use_pallas=True`` over a
@@ -19,16 +20,35 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    kernel's launch count must show every fusion site of every batch; the
    float32 logits must agree with the eager gating path, and a small input
    must agree with the port's CPU forward;
-4. a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line, and last
+4. the backward kernel against its plain version at the same shapes and
+   dtypes, with its time beside the bound, the plain version's and torch
+   autograd of the eager gating's;
+5. the training path at full width: the ``train`` entry with
+   ``configs/training_guided.gin`` + ``MMTM_mitigate.use_pallas=True``,
+   ``train.batch_size=128``, over a synthetic split of 256 train, 128
+   validation and 128 test samples, ``training_loop.n_epochs=3`` (two
+   epochs), in float32 and bfloat16; the forward kernel must have run 3 x
+   (train steps + eval batches) times and the backward 3 x train steps, at
+   least one step curated, every loss finite, every artifact written;
+6. one guided step from identical state, batch and flips on the kernel path
+   and on the eager path, with curation off and on (float32, TF32 off):
+   the updated parameters, BatchNorm statistics and MMTM buffers agree
+   (per tensor, the L2 of the difference within ``STEP_TOL`` of the
+   update's L2; the eager step run twice is printed beside it); and
+   guided-step samples/s with a device-resident batch, kernel path and
+   eager path, float32 and bfloat16;
+7. a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
 Scratch files go to ``smoke_out/`` in the checkout (git-ignored); the
-synthetic split and the checkpoint are removed at exit.
+synthetic splits, checkpoints and training runs are removed at exit.
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
+import csv
 import io
 import json
 import os
@@ -44,15 +64,24 @@ import torch
 from greedy_multimodal_learning_tpu_torch import config as cfg
 from greedy_multimodal_learning_tpu_torch.bootstrap import init_model
 from greedy_multimodal_learning_tpu_torch.data.synthetic import make_synthetic_modelnet
+from greedy_multimodal_learning_tpu_torch.engine import Trainer, make_optimizer
+from greedy_multimodal_learning_tpu_torch.entries import train
 from greedy_multimodal_learning_tpu_torch.models import MMTMMVCNN
 from greedy_multimodal_learning_tpu_torch.ops import build as kernel_build
-from greedy_multimodal_learning_tpu_torch.ops.mmtm_gating import mmtm_gating, mmtm_gating_plain
+from greedy_multimodal_learning_tpu_torch.ops.mmtm_gating import (
+    mmtm_gating,
+    mmtm_gating_bwd,
+    mmtm_gating_bwd_plain,
+    mmtm_gating_plain,
+)
 from greedy_multimodal_learning_tpu_torch.predict import predict_
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(REPO, "smoke_out")
-DATA = os.path.join(WORK, "data")  # synthetic split and checkpoint: removed at exit
+DATA = os.path.join(WORK, "data")  # synthetic splits, checkpoint and runs: removed at exit
 CKPT = os.path.join(WORK, "seeded.pt")
+TRAIN_DATA = os.path.join(WORK, "train_data")
+TRAIN_RUNS = os.path.join(WORK, "train_runs")
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM bytes/s and the
 # arithmetic rate for each input type (bf16 at the tensor-core rate, float32
@@ -71,6 +100,30 @@ TOL = {
     torch.bfloat16: {"out": (8e-3, 0.0), "sq": (1e-5, 1e-6), "g": (0.0, 2e-3)},
 }
 EAGER_LOGIT_ATOL = 1e-4
+# (rtol, atol as a fraction of the largest |value| of that output): the
+# weight gradients are batch sums of products that cancel (terms of order 1,
+# sums of order 1e-2), so their rounding error scales with the terms, not
+# with the sum.
+BWD_TOL = {
+    # f32: the same f32 arithmetic in another summation order
+    torch.float32: {"df": (1e-5, 1e-6), "dw": (1e-4, 1e-5)},
+    # bf16: df is rounded to bf16 on both sides (one ulp, 2^-7 relative);
+    # the weight gradients are f32 sums of the same bf16 inputs
+    torch.bfloat16: {"df": (8e-3, 1e-6), "dw": (1e-4, 1e-5)},
+}
+# Kernel path vs eager path after one guided step from the same state, f32
+# without TF32: per tensor, ||p_kernel - p_eager||_2 <= STEP_TOL *
+# ||p_eager - p_before||_2 + 1e-7.  The two gating paths differ by rounding
+# (~1e-7 relative in the forward), and over the step's ~10^8 ReLU inputs a
+# few lie within that distance of zero and land on opposite sides, each
+# switching one element's gradient for the layers below it: a single weight
+# can then move by a few percent of the largest update, so the element-wise
+# max is no measure.  A wrong term in the backward moves the L2 of the update
+# by O(1).  The same step run twice on the eager path gives the run-to-run
+# floor (cuDNN's weight gradients need not be deterministic); it is printed
+# beside the result.
+STEP_TOL = 1e-2
+N_TRAIN, N_VAL, N_TRAIN_TEST = 256, 128, 128
 CPU_LOGIT_TOL = (1e-4, 1e-4)  # (rtol, atol): cuDNN without TF32 vs the CPU's f32 convolutions
 
 
@@ -314,6 +367,271 @@ def serving_phase():
         tag: {"samples_per_s": r["samples_per_s"], "launches": r["launches"]} for tag, r in results.items()
     } | {"eager_logit_err": logit_err, "bf16_class_agreement": agree, "cpu_logit_err": cpu_err}
 
+# ---- phase 4 helpers -------------------------------------------------------------
+
+
+def bwd_inputs(B, S, C, dtype, seed):
+    """The backward's inputs for seeded gating inputs: the cotangents of
+    the six forward outputs and the forward's residuals, in
+    :func:`mmtm_gating_bwd`'s order."""
+    f0, f1, wsq, bsq, w0, b0, w1, b1 = gating_inputs(B, S, C, dtype, seed)
+    _, _, sq0, sq1, g0, g1 = mmtm_gating_plain(f0, f1, wsq, bsq, w0, b0, w1, b1)
+    g = torch.Generator(device="cuda").manual_seed(seed + 100)
+    do0, do1 = (torch.randn((B, S, C), generator=g, device="cuda").to(dtype) for _ in range(2))
+    rows = [0.1 * torch.randn((B, C), generator=g, device="cuda") for _ in range(4)]  # dg0c dg1c dsq0c dsq1c
+    return [do0, do1, f0, f1, g0, g1, sq0, sq1, wsq, bsq, w0, w1, *rows], (b0, b1)
+
+
+def eager_autograd_backward(args, biases):
+    """torch autograd through the eager gating (the yardstick for the fused
+    backward; no single PyTorch call computes it): builds the graph once and
+    returns a closure that runs only its backward."""
+    do0, do1, f0, f1, _, _, _, _, wsq, bsq, w0, w1, dg0c, dg1c, dsq0c, dsq1c = args
+    leaves = [t.detach().requires_grad_() for t in (f0, f1, wsq, bsq, w0, biases[0], w1, biases[1])]
+    outs = eager_gating(*leaves)
+    cots = (do0, do1, dsq0c, dsq1c, dg0c, dg1c)
+    return lambda: torch.autograd.grad(outs, leaves, cots, retain_graph=True)
+
+
+def bwd_bound_ms(B, S, C, dtype):
+    """Least time for one fused backward call: do0, do1, f0, f1, the
+    weights and the eight (B, C) f32 rows read once, df0, df1 and the f32
+    weight gradients written once, over HBM bandwidth; or its f32
+    arithmetic (two spatial passes, five B x D x 2C products) over the f32
+    peak; whichever is larger."""
+    D = C
+    item = torch.tensor([], dtype=dtype).element_size()
+    weights = 2 * C * D + D + 2 * D * C
+    nbytes = 6 * B * S * C * item + weights * item + 8 * B * C * 4 + (weights + 2 * C) * 4
+    flops = 2 * 2 * B * S * C + 3 * 2 * B * S * C + 2 * 5 * B * D * 2 * C
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[torch.float32]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def backward_kernel_phase():
+    """Backward kernel vs plain at the model's shapes; returns per-dtype timing."""
+    needs_grad = gating_inputs(5, 196, 256, torch.float32, 0)
+    needs_grad[0].requires_grad_()
+    try:
+        mmtm_gating(*needs_grad)
+    except RuntimeError:
+        log("[bwd kernel] a direct forward-kernel call on tensors that need a gradient raises, as it must")
+    else:
+        raise AssertionError("mmtm_gating returned tensors detached from autograd instead of raising")
+    cases = [(name, BATCH, S, C) for name, (S, C) in SITES.items()] + [("mmtm3_ragged", 5, 196, 256)]
+    names = ("df0", "df1", "dwsq", "dbsq", "dw0", "db0", "dw1", "db1")
+    report = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = BWD_TOL[dtype]
+        per_site, max_err = {}, 0.0
+        for seed, (name, B, S, C) in enumerate(cases):
+            args, biases = bwd_inputs(B, S, C, dtype, seed)
+            got = mmtm_gating_bwd(*args)
+            torch.cuda.synchronize()
+            again = mmtm_gating_bwd(*args)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"{name} {dtype}: two runs of the backward kernel differ")
+            want = mmtm_gating_bwd_plain(*args)
+            for label, a, b in zip(names, got, want):
+                rtol, atol = tol["df" if label.startswith("df") else "dw"]
+                atol *= float(b.abs().max())
+                max_err = max(max_err, check_close(f"bwd {name} {dtype} {label}", a, b, rtol, atol))
+            if B != BATCH:
+                continue
+            bms, bby = bwd_bound_ms(B, S, C, dtype)
+            per_site[name] = {
+                "shape": [B, S, C],
+                "ms": time_ms(mmtm_gating_bwd, args),
+                "plain_ms": time_ms(mmtm_gating_bwd_plain, args),
+                "eager_autograd_ms": time_ms(eager_autograd_backward(args, biases), ()),
+                "bound_ms": bms,
+                "bound_by": bby,
+            }
+            log(f"[bwd kernel] {name} {str(dtype)[6:]} B={B} S={S} C={C}: " + json.dumps(per_site[name]))
+        keys = ("ms", "plain_ms", "eager_autograd_ms", "bound_ms")
+        totals = {k: sum(site[k] for site in per_site.values()) for k in keys}
+        report[dtype] = {"sites": per_site, "max_abs_err": max_err, **totals}
+        log(f"[bwd kernel] {str(dtype)[6:]} per step (3 sites): " + json.dumps(totals) + f" max_abs_err {max_err:.3e}")
+    return report
+
+
+# ---- phase 5 helpers -------------------------------------------------------------
+
+
+def run_train(tag, configs, bindings, save_path):
+    """One run of the ``train`` entry through the gin surface, the kernels'
+    counts set to 0 just before it and read just after; checks the counts,
+    the curated steps, the losses and the artifacts."""
+    cfg.clear_config()
+    cfg.parse_config_files_and_bindings([os.path.join(REPO, c) for c in configs], "\n".join(bindings))
+    buf = io.StringIO()
+    mmtm_gating.launches = 0
+    mmtm_gating_bwd.launches = 0
+    t0 = time.time()
+    with contextlib.redirect_stdout(buf):
+        trainer = train(save_path)
+    torch.cuda.synchronize()
+    fwd, bwd = mmtm_gating.launches, mmtm_gating_bwd.launches
+    wall = time.time() - t0
+    with open(os.path.join(save_path, "history.csv")) as f:
+        rows = list(csv.DictReader(f))
+    eval_batches = len(rows) * (-(-N_VAL // BATCH) + -(-N_TRAIN_TEST // BATCH))
+    want_fwd, want_bwd = 3 * (trainer.step + eval_batches), 3 * trainer.step
+    log(f"[train {tag}] {len(rows)} epochs, {trainer.step} steps, {trainer.curated_steps} curated, {wall:.1f}s | "
+        f"forward launches {fwd} (want {want_fwd}), backward launches {bwd} (want {want_bwd})")
+    if (fwd, bwd) != (want_fwd, want_bwd) or trainer.step != 2 * (N_TRAIN // BATCH):
+        raise AssertionError(f"{tag}: launches (forward, backward) = {(fwd, bwd)}, want {(want_fwd, want_bwd)}; "
+                             f"{trainer.step} steps")
+    if trainer.curated_steps < 1:
+        raise AssertionError(f"{tag}: no step ran with curation on")
+    for r in rows:
+        losses = [float(r[k]) for k in ("loss", "val_loss", "test_loss")]
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"{tag}: epoch {r['epoch']} losses {losses}")
+    for name in ("history.csv", "history.pickle", "model_best_val.pt", "model_last_epoch.pt",
+                 "model_best_val.pt.torch.pt", "model_last_epoch.pt.torch.pt"):
+        if not os.path.exists(os.path.join(save_path, name)):
+            raise AssertionError(f"{tag}: {name} was not written")
+    rates = [float(r["train_samples_per_sec"]) for r in rows]
+    log(f"[train {tag}] train samples/s per epoch {rates}; losses {[float(r['loss']) for r in rows]}")
+    return {"fwd_launches": fwd, "bwd_launches": bwd, "steps": trainer.step, "curated_steps": trainer.curated_steps,
+            "train_samples_per_s": rates, "wall_s": wall}
+
+
+def training_phase():
+    t0 = time.time()
+    make_synthetic_modelnet(TRAIN_DATA, n_train=N_TRAIN + N_VAL, n_test=N_TRAIN_TEST, num_views=2, image_size=224,
+                            nclasses=40, seed=1)
+    log(f"[train] synthetic split in {time.time() - t0:.1f}s")
+    base = [
+        "MMTM_mitigate.use_pallas=True",
+        f"train.batch_size={BATCH}",
+        f"get_mvdcndata.root_dir='{TRAIN_DATA}'",
+        "get_mvdcndata.specific_views=[0, 1]",
+        f"get_mvdcndata.valid_size={(N_VAL + 0.5) / (N_TRAIN + N_VAL)!r}",
+        "training_loop.n_epochs=3",
+    ]
+    return {
+        tag: run_train(tag, configs, base, os.path.join(TRAIN_RUNS, tag))
+        for tag, configs in (
+            ("f32", ["configs/training_guided.gin"]),
+            ("bf16", ["configs/training_guided.gin", "configs/tpu_bf16.gin"]),
+        )
+    }
+
+
+# ---- phase 6 helpers -------------------------------------------------------------
+
+
+def guided_trainer(model):
+    return Trainer(
+        model,
+        make_optimizer(model.parameters(), lr=0.1),
+        controller_kind="guided",
+        controller_config={"epsilon": 0.01, "curation_windowsize": 5},
+        device="cuda",
+    )
+
+
+def device_batch(seed, pad=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    data = {
+        "images": torch.randint(0, 256, (BATCH, 2, 224, 224, 3), generator=g, device="cuda", dtype=torch.uint8),
+        "labels": torch.randint(0, 40, (BATCH,), generator=g, device="cuda", dtype=torch.int32),
+        "mask": torch.ones(BATCH, device="cuda"),
+    }
+    data["mask"][BATCH - pad:] = 0.0
+    return data, torch.rand((BATCH, 2), generator=g, device="cuda") < 0.5
+
+
+def seeded_pair(dtype=torch.float32, seed=5):
+    """The same seeded model on the kernel path and on the eager path."""
+    base = init_model(MMTMMVCNN(nclasses=40, use_pallas=True, dtype=dtype), seed, "cpu")
+    pair = {}
+    for tag, kernel in (("kernel", True), ("eager", False)):
+        model = copy.deepcopy(base)
+        for m in model.mmtms.values():
+            m.use_pallas = kernel
+        pair[tag] = model.to(device="cuda", memory_format=torch.channels_last)
+    return pair
+
+
+def stepped_state(model, data, flips, curating):
+    """Floating state_dict entries after one guided step (curating
+    modality 1 or not) from the model's state."""
+    trainer = guided_trainer(model)
+    trainer.ctrl.curation_mode = torch.tensor(curating, device="cuda")
+    trainer.ctrl.caring_modality = torch.tensor(1, dtype=torch.int32, device="cuda")
+    trainer.train_batch(data, flips, torch.tensor(True, device="cuda"))
+    return {k: v.float() for k, v in model.state_dict().items() if v.is_floating_point()}
+
+
+def step_agreement():
+    """One guided step from one state, batch and flips on both gating
+    paths (and once more on the eager path), with curation off and curating
+    modality 1; returns the largest per-tensor ||kernel - eager||_2 over
+    ||update||_2 across parameters and floating buffers, and the same for
+    eager vs eager."""
+    data, flips = device_batch(11, pad=3)
+    worst = {"kernel": 0.0, "eager_again": 0.0}
+    for curating in (False, True):
+        pair = seeded_pair()
+        before = {k: v.float().clone() for k, v in pair["eager"].state_dict().items() if v.is_floating_point()}
+        again = copy.deepcopy(pair["eager"])
+        states = {tag: stepped_state(m, data, flips, curating) for tag, m in pair.items()}
+        states["eager_again"] = stepped_state(again, data, flips, curating)
+        for key, want in states["eager"].items():
+            update = float((want - before[key]).norm())
+            for tag in ("kernel", "eager_again"):
+                got = states[tag][key]
+                if not torch.isfinite(got).all():
+                    raise AssertionError(f"step (curating={curating}) {tag} {key}: non-finite values")
+                diff = float((got - want).norm())
+                if tag == "kernel" and diff > STEP_TOL * update + 1e-7:
+                    raise AssertionError(f"step (curating={curating}) kernel vs eager {key}: ||diff|| {diff:.3e} "
+                                         f"beyond {STEP_TOL} x the update's {update:.3e}")
+                worst[tag] = max(worst[tag], diff / max(update, 1e-30))
+        del pair, again, states
+        torch.cuda.empty_cache()
+    log(f"[step] after one guided step, curation off and on (f32, B={BATCH}, 224²), largest ||diff||_2 / "
+        f"||update||_2 over every parameter and buffer: kernel vs eager {worst['kernel']:.3e}, "
+        f"eager vs eager {worst['eager_again']:.3e}")
+    return worst
+
+
+def step_throughput(dtype, kernel, steps=10, warmup=3):
+    """Guided-step samples/s on a device-resident batch (no data loading)."""
+    model = seeded_pair(dtype)["kernel" if kernel else "eager"]
+    trainer = guided_trainer(model)
+    unlock = torch.tensor(True, device="cuda")
+    data, flips = device_batch(12)
+    for _ in range(warmup):
+        trainer.train_batch(data, flips, unlock)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        trainer.train_batch(data, flips, unlock)
+    torch.cuda.synchronize()
+    rate = steps * BATCH / (time.perf_counter() - t0)
+    del trainer, model
+    torch.cuda.empty_cache()
+    return rate
+
+
+def throughput_phase():
+    """Kernel and eager gating in turns (kernel, eager, eager, kernel) per dtype."""
+    rates = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        runs = {True: [], False: []}
+        for kernel in (True, False, False, True):
+            runs[kernel].append(step_throughput(dtype, kernel))
+        for kernel, vals in runs.items():
+            tag = f"{str(dtype)[6:]}_{'kernel' if kernel else 'eager'}"
+            rates[tag] = vals
+            log(f"[step] guided step samples/s, {tag}, B={BATCH}, 224²: {vals}")
+    return rates
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -324,7 +642,7 @@ def main() -> int:
     log(f"[card] {smi} | torch {torch.__version__} CUDA {torch.version.cuda} | {torch.cuda.get_device_name(0)}")
 
     t0 = time.time()
-    libs = kernel_build.build(["mmtm_gating"])
+    libs = kernel_build.build(["mmtm_gating", "mmtm_gating_bwd"])
     log(f"[build] {time.time() - t0:.1f}s: " + ", ".join(str(p.relative_to(REPO)) for p in libs.values()))
     for p in libs.values():
         log_path = p.with_suffix(".so.log")
@@ -341,16 +659,32 @@ def main() -> int:
         if os.path.exists(CKPT):
             os.remove(CKPT)
     log("[serving] " + json.dumps(serving))
+    bwd_timing = backward_kernel_phase()
+    try:
+        training = training_phase()
+    finally:
+        shutil.rmtree(TRAIN_DATA, ignore_errors=True)
+        shutil.rmtree(TRAIN_RUNS, ignore_errors=True)
+    log("[train] " + json.dumps(training))
+    step_err = step_agreement()
+    rates = throughput_phase()
+
+    def bound_by(report):
+        return "bytes" if all(s["bound_by"] == "bytes" for s in report["sites"].values()) else "operations"
 
     f32, bf16 = timing[torch.float32], timing[torch.bfloat16]
+    bf32, bbf16 = bwd_timing[torch.float32], bwd_timing[torch.bfloat16]
     kernels = [{
         "name": "mmtm_gating",
         "route": "cuda",
         "source": "greedy_multimodal_learning_tpu_torch/csrc/mmtm_gating.cu",
         "replaces": "greedy_multimodal_learning_tpu/ops/mmtm_pallas.py:47",
         "replaces_kernel": "_gating_kernel",
-        "launches": serving["f32"]["launches"],
-        "launches_bf16": serving["bf16"]["launches"],
+        # main path: the f32 training run (train steps and eval batches)
+        "launches": training["f32"]["fwd_launches"],
+        "launches_bf16": training["bf16"]["fwd_launches"],
+        "launches_serving": serving["f32"]["launches"],
+        "launches_serving_bf16": serving["bf16"]["launches"],
         "max_abs_err": f32["max_abs_err"],
         "max_abs_err_bf16": bf16["max_abs_err"],
         # float32, the configuration's dtype: one forward's three fusion sites at B=128
@@ -359,11 +693,31 @@ def main() -> int:
         "plain_ms": f32["plain_ms"],
         "eager_ms": f32["eager_ms"],
         "bound_ms": f32["bound_ms"],
-        "bound_by": "bytes" if all(s["bound_by"] == "bytes" for s in f32["sites"].values()) else "operations",
+        "bound_by": bound_by(f32),
         "library_ms": None,
         "bf16": {k: bf16[k] for k in ("ms", "plain_ms", "eager_ms", "bound_ms")},
         "sites": {str(dt)[6:]: t["sites"] for dt, t in timing.items()},
+    }, {
+        "name": "mmtm_gating_bwd",
+        "route": "cuda",
+        "source": "greedy_multimodal_learning_tpu_torch/csrc/mmtm_gating_bwd.cu",
+        "replaces": "greedy_multimodal_learning_tpu/ops/mmtm_pallas.py:150",
+        "replaces_kernel": "_gating_bwd_kernel",
+        "launches": training["f32"]["bwd_launches"],
+        "launches_bf16": training["bf16"]["bwd_launches"],
+        "max_abs_err": bf32["max_abs_err"],
+        "max_abs_err_bf16": bbf16["max_abs_err"],
+        # float32: one step's three fusion sites at B=128
+        "ms": bf32["ms"],
+        "plain_ms": bf32["plain_ms"],
+        "eager_autograd_ms": bf32["eager_autograd_ms"],
+        "bound_ms": bf32["bound_ms"],
+        "bound_by": bound_by(bf32),
+        "library_ms": None,
+        "bf16": {k: bbf16[k] for k in ("ms", "plain_ms", "eager_autograd_ms", "bound_ms")},
+        "sites": {str(dt)[6:]: t["sites"] for dt, t in bwd_timing.items()},
     }]
+    log("[step] " + json.dumps({"l2_diff_over_update": step_err, "samples_per_s": rates}))
     print(json.dumps({"kernels": kernels}))
     print(smi_line())
     print(json.dumps({

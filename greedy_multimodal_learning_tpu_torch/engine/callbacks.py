@@ -1,0 +1,341 @@
+"""Callbacks (``greedy_multimodal_learning_tpu/engine/callbacks.py``): the
+hook set, the guided controller's callback, stopping, the learning-rate
+plateau, checkpointing and progress lines, with the JAX package's gin names.
+
+The guided controller's arithmetic runs inside the train step
+(``engine/controller.py``); its callback carries the configuration and
+unlocks the controller at ``starting_epoch``.  The random, weakest and
+adaptive controllers are not ported yet: their names raise in
+``entries.train``.
+"""
+
+from __future__ import annotations
+
+import itertools
+import logging
+import sys
+import timeit
+
+import numpy as np
+import torch
+
+from .. import config as cfg
+
+logger = logging.getLogger(__name__)
+
+
+def _host_float(v):
+    """float(v) for progress rendering, skipping values still on a device:
+    reading one would wait for the step, and the epoch-end line shows the
+    fetched values anyway."""
+    if v is None or (isinstance(v, torch.Tensor) and v.device.type != "cpu"):
+        return None
+    return float(v)
+
+
+class CallbackList:
+    def __init__(self, callbacks=None):
+        self.callbacks = list(callbacks or [])
+
+    def append(self, callback):
+        self.callbacks.append(callback)
+
+    def _each(self, hook, *args):
+        for c in self.callbacks:
+            getattr(c, hook)(*args)
+
+    def set_params(self, params):
+        self._each("set_params", params)
+
+    def set_model_pytoune(self, model_pytoune):
+        self._each("set_model_pytoune", model_pytoune)
+
+    def on_epoch_begin(self, epoch, logs=None):
+        self._each("on_epoch_begin", epoch, logs or {})
+
+    def on_epoch_end(self, epoch, logs=None):
+        self._each("on_epoch_end", epoch, logs or {})
+
+    def on_batch_begin(self, batch, logs=None):
+        self._each("on_batch_begin", batch, logs or {})
+
+    def on_batch_end(self, batch, logs=None):
+        self._each("on_batch_end", batch, logs or {})
+
+    def on_forward_begin(self, batch, data):
+        self._each("on_forward_begin", batch, data)
+
+    def on_backward_end(self, batch):
+        self._each("on_backward_end", batch)
+
+    def on_train_begin(self, logs=None):
+        self._each("on_train_begin", logs or {})
+
+    def on_train_end(self, logs=None):
+        self._each("on_train_end", logs or {})
+
+    def on_val_batch_end(self, batch, logs=None):
+        self._each("on_val_batch_end", batch, logs or {})
+
+
+class Callback:
+    def set_config(self, config):
+        self.config = config
+
+    def set_save_path(self, save_path):
+        self.save_path = save_path
+
+    def set_optimizer(self, optimizer):
+        self.optimizer = optimizer
+
+    def set_model(self, model, ignore=True):
+        if not ignore:
+            self.model = model
+
+    def set_model_pytoune(self, model_pytoune):
+        self.model_pytoune = model_pytoune
+
+    def set_params(self, params):
+        self.params = params
+
+    def on_epoch_begin(self, epoch, logs):
+        pass
+
+    def on_epoch_end(self, epoch, logs):
+        pass
+
+    def on_batch_begin(self, batch, logs):
+        pass
+
+    def on_batch_end(self, batch, logs):
+        pass
+
+    def on_forward_begin(self, batch, data):
+        pass
+
+    def on_backward_end(self, batch):
+        pass
+
+    def on_train_begin(self, logs):
+        pass
+
+    def on_train_end(self, logs):
+        pass
+
+    def on_val_batch_end(self, batch, logs):
+        pass
+
+
+@cfg.configurable
+class Bias_Mitigation_Strong(Callback):
+    """Guided balancing (the paper's algorithm), ``callbacks.py:201-233``."""
+
+    controller_kind = "guided"
+
+    def __init__(
+        self,
+        epsilon=0.01,
+        curation_windowsize=5,
+        branchnames=("net_view_0", "net_view_1"),
+        starting_epoch=2,
+        MMTMnames=("visual", "skeleton"),
+    ):
+        self.epsilon = epsilon
+        self.curation_windowsize = curation_windowsize
+        self.branchnames = list(branchnames)
+        self.MMTMnames = list(MMTMnames)
+        self.starting_epoch = starting_epoch
+
+    def controller_config(self):
+        return dict(
+            epsilon=self.epsilon,
+            curation_windowsize=self.curation_windowsize,
+            branchnames=self.branchnames,
+            mmtm_names=self.MMTMnames,
+            starting_epoch=self.starting_epoch,
+        )
+
+    def on_train_begin(self, logs):
+        self.model_pytoune.reset_controller()
+
+    def on_epoch_begin(self, epoch, logs):
+        if epoch >= self.starting_epoch:
+            self.model_pytoune.unlock_controller()
+
+
+@cfg.configurable
+class CompletedStopping(Callback):
+    """Stop when the monitored metric is exactly 100 for ``patience`` epochs,
+    counted cumulatively (``callbacks.py:410-440``)."""
+
+    def __init__(self, *, monitor="acc", patience=5, verbose=True):
+        self.monitor = monitor
+        self.patience = patience
+        self.verbose = verbose
+        self.stopped_epoch = 0
+
+    def on_train_begin(self, logs):
+        self.stopped_epoch = 0
+        self.counter = 0
+
+    def on_epoch_end(self, epoch, logs):
+        if logs[self.monitor] == 100:
+            self.counter += 1
+        if self.counter >= self.patience:
+            self.stopped_epoch = epoch
+            self.model_pytoune.stop_training = True
+
+    def on_train_end(self, logs):
+        if self.stopped_epoch > 0 and self.verbose:
+            print("Epoch %05d: completed stopping" % (self.stopped_epoch + 1))
+
+
+@cfg.configurable
+class ReduceLROnPlateau_PyTorch(Callback):
+    """``torch.optim.lr_scheduler.ReduceLROnPlateau`` semantics on an epoch
+    metric: mode min, relative threshold 1e-3, cooldown 0, min_lr 1e-6,
+    eps 1e-8 (``callbacks.py:444-490``)."""
+
+    def __init__(self, metric="loss", factor=0.3, patience=10):
+        self.metric = metric
+        self.factor = factor
+        self.patience = patience
+        self.threshold = 1e-3
+        self.min_lr = 1e-6
+        self.eps = 1e-8
+
+    def on_train_begin(self, logs):
+        self.best = float("inf")
+        self.num_bad_epochs = 0
+
+    def on_epoch_end(self, epoch, logs):
+        current = float(logs[self.metric])
+        if current < self.best * (1.0 - self.threshold):
+            self.best = current
+            self.num_bad_epochs = 0
+        else:
+            self.num_bad_epochs += 1
+        if self.num_bad_epochs > self.patience:
+            old_lr = self.model_pytoune.get_lr()
+            new_lr = max(old_lr * self.factor, self.min_lr)
+            if old_lr - new_lr > self.eps:
+                self.model_pytoune.set_lr(new_lr)
+                print(f"Epoch {epoch:5d}: reducing learning rate to {new_lr:.4e}.")
+            self.num_bad_epochs = 0
+
+
+class LambdaCallback(Callback):
+    def __init__(self, on_epoch_end):
+        self.on_epoch_end = on_epoch_end
+
+
+class ModelCheckpoint(Callback):
+    """Save when the monitored epoch metric exceeds its best so far: the
+    best-val checkpoint of ``training_loop``, whose ``ModelCheckpoint``
+    (``callbacks.py:511-567``) runs with ``save_best_only=True`` and mode
+    max whatever the metric (reference ``src/training_loop.py:39-42``)."""
+
+    def __init__(self, filepath, monitor):
+        self.filepath = filepath
+        self.monitor = monitor
+        self.best = -np.inf
+
+    def on_epoch_end(self, epoch, logs):
+        current = logs.get(self.monitor)
+        if current is None:
+            logging.warning("Can save best model only with %s available, skipping.", self.monitor)
+        elif current > self.best:
+            self.best = current
+            self.model_pytoune.save_weights(self.filepath)
+
+
+def _metric_strings(logs, keys):
+    out = []
+    for k in keys:
+        v = _host_float(logs.get(k))
+        if v is not None:
+            out.append("{}: {:f}".format(k, v))
+    return out
+
+
+@cfg.configurable
+class ProgressionCallback(Callback):
+    """Carriage-return progress lines with an ETA (``callbacks.py:571-647``),
+    at most one every ``min_render_interval`` seconds."""
+
+    def __init__(self, other_metrics=("acc_modal_0", "acc_modal_1"), min_render_interval=2.0):
+        self.other_metrics = list(other_metrics)
+        self.min_render_interval = min_render_interval
+        self._last_render = 0.0
+
+    def on_train_begin(self, logs):
+        self.metrics = ["loss"] + self.model_pytoune.metrics_names
+        self.epochs = self.params["epochs"]
+        self.steps = self.params["steps"]
+
+    def on_epoch_begin(self, epoch, logs):
+        self.step_times_sum = 0.0
+        self.epoch = epoch
+        sys.stdout.write("\rEpoch %d/%d" % (self.epoch, self.epochs))
+        sys.stdout.flush()
+
+    def _line(self, logs):
+        metrics = ", ".join(itertools.chain(
+            _metric_strings(logs, self.metrics), _metric_strings(logs, ["val_" + k for k in self.metrics])))
+        return metrics, ", ".join(_metric_strings(logs, self.other_metrics))
+
+    def on_epoch_end(self, epoch, logs):
+        metrics, other = self._line(logs)
+        steps = self.steps or 0
+        print("\rEpoch %d/%d %.2fs: Step %d/%d: %s. %s"
+              % (self.epoch, self.epochs, logs.get("time", 0.0), steps, steps, metrics, other))
+
+    def on_batch_end(self, batch, logs):
+        self.step_times_sum += timeit.default_timer() - logs.get("batch_begin_time", timeit.default_timer())
+        now = timeit.default_timer()
+        if self.steps is not None and batch < self.steps and now - self._last_render < self.min_render_interval:
+            return
+        self._last_render = now
+        metrics, other = self._line(logs)
+        times_mean = self.step_times_sum / max(batch, 1)
+        if self.steps is not None:
+            sys.stdout.write("\rEpoch %d/%d ETA %.2fs Step %d/%d: %s. %s" % (
+                self.epoch, self.epochs, times_mean * (self.steps - batch), batch, self.steps, metrics, other))
+        else:
+            sys.stdout.write("\rEpoch %d/%d %.2fs/step Step %d: %s. %s"
+                             % (self.epoch, self.epochs, times_mean, batch, metrics, other))
+        sys.stdout.flush()
+
+
+class ValidationProgressionCallback(Callback):
+    """Per-phase eval progress lines (``callbacks.py:650-691``)."""
+
+    def __init__(self, phase, metrics_names, steps=None, min_render_interval=2.0):
+        self.params = {"steps": steps, "phase": phase}
+        self.metrics = metrics_names
+        self.min_render_interval = min_render_interval
+        self._last_render = 0.0
+        self.step_times_sum = 0.0
+
+    def on_batch_begin(self, batch, logs):
+        if batch == 1:
+            self.step_times_sum = 0.0
+        self.steps = self.params["steps"]
+
+    def on_batch_end(self, batch, logs):
+        self.step_times_sum += timeit.default_timer() - logs.get("batch_begin_time", timeit.default_timer())
+        now = timeit.default_timer()
+        if self.steps is not None and batch < self.steps and now - self._last_render < self.min_render_interval:
+            return
+        self._last_render = now
+        phase = self.params["phase"]
+        metrics = ", ".join(
+            f"{phase}_{k}: {v:f}" for k in self.metrics if (v := _host_float(logs.get(k))) is not None
+        )
+        times_mean = self.step_times_sum / max(batch, 1)
+        if self.steps is not None:
+            sys.stdout.write("\r%s ETA %.2fs Step %d/%d: %s."
+                             % (phase, times_mean * (self.steps - batch), batch, self.steps, metrics))
+        else:
+            sys.stdout.write("\r%s %.2fs/step Step %d: %s." % (phase, times_mean, batch, metrics))
+        sys.stdout.flush()

@@ -11,11 +11,17 @@ would import jax, so the port reads the ``.pt`` only: MMTM running averages
 then start at zero.  ``state_dict_from_jax`` builds the same state_dict
 straight from the JAX package's parameter trees (nested dicts of arrays),
 MMTM buffers included.
+
+``save_weights`` writes the ``.pt`` the same way (no MMTM buffers, no
+``num_batches_tracked``), so the JAX package reads the port's checkpoints,
+plus a torch-native sidecar ``<file>.torch.pt`` with what the ``.pt`` lacks:
+the MMTM buffers, the controller state, the step and the optimizer state.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import re
 
 import numpy as np
@@ -91,3 +97,35 @@ def load_weights(model: torch.nn.Module, filepath) -> None:
         )
     not_loaded = [k for k in missing if not k.endswith("num_batches_tracked")]
     logger.info("Loaded %s (%d entries; not in the file: %d)", filepath, len(state) - len(unexpected), len(not_loaded))
+
+
+def _is_portable(key: str) -> bool:
+    """Keys of the state_dict the JAX package writes and reads: parameters
+    and BatchNorm statistics, no MMTM buffers, no ``num_batches_tracked``."""
+    return not (key.endswith("num_batches_tracked") or ".running_avg_" in key or key.endswith(".step"))
+
+
+def _atomic_save(obj, path):
+    """torch.save to a temporary file, then rename: a crash mid-save never
+    leaves a truncated checkpoint."""
+    tmp = f"{path}.tmp"
+    torch.save(obj, tmp)
+    os.replace(tmp, path)
+
+
+def save_weights(model: torch.nn.Module, filepath, *, optimizer=None, controller=None, step=None) -> None:
+    """Write ``{"model": state_dict, "optimizer": {}}`` as the JAX package
+    does (``checkpoint.py:85-101``), then the sidecar ``<file>.torch.pt``
+    with the MMTM buffers, the controller state (a dict of tensors), the
+    global step and the optimizer's state_dict."""
+    state = {k: v.detach().cpu().contiguous() for k, v in model.state_dict().items()}
+    _atomic_save({"model": {k: v for k, v in state.items() if _is_portable(k)}, "optimizer": {}}, filepath)
+    _atomic_save(
+        {
+            "mmtm": {k: v for k, v in state.items() if k.startswith("mmtm") and not _is_portable(k)},
+            "controller": {k: v.detach().cpu() for k, v in (controller or {}).items()},
+            "step": step,
+            "optimizer": optimizer.state_dict() if optimizer is not None else None,
+        },
+        f"{filepath}.torch.pt",
+    )

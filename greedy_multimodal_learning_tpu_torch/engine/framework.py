@@ -1,20 +1,34 @@
 """Trainer: the engine around the model (``greedy_multimodal_learning_tpu/engine/framework.py``).
 
-This slice carries the serving part only: ``load_weights``, ``predict`` and
-``_predict_step`` (``framework.py:209-214, 622-677``).  The epoch loop,
-callbacks and the train step come with the training slice.
+The epoch loop (train, then validation and test passes), size-weighted
+epoch metrics, callback hooks and the NaN stop, plus serving (``predict``).
+Step outputs stay on the device and are fetched once per epoch; a NaN loss
+stops training after the epoch, as in the JAX package.  The controller
+state lives on the device and enters each step as tensors; callbacks flip
+host latches (``unlock_controller``).
+
+Not ported: the scanned eval, ``fold_bn_eval``, recording outputs and the
+data-parallel mesh.
 """
 
 from __future__ import annotations
 
+import functools
 import itertools
 import logging
+import timeit
+from typing import Optional
 
 import numpy as np
 import torch
 
 from . import checkpoint as ckpt
-from ..data.transforms import preprocess
+from ..data.transforms import draw_flips, preprocess
+from .bdr import GroupReducer
+from .callbacks import CallbackList, ProgressionCallback, ValidationProgressionCallback
+from .controller import guided_update, init_controller_state, null_update
+from .steps import eval_step, train_step
+from .train_state import get_learning_rate, set_learning_rate
 
 logger = logging.getLogger(__name__)
 
@@ -25,14 +39,257 @@ def _cycle(iterable):
             yield x
 
 
+def _steps(generator, steps):
+    """(1-based index, batch) pairs: ``steps`` batches cycling the generator,
+    or one pass over it when ``steps`` is None."""
+    if steps is None:
+        return enumerate(generator, 1)
+    return zip(range(1, steps + 1), _cycle(generator))
+
+
+def _fetch(records):
+    """One device-to-host copy for a list of {name: 0-dim or (N,) tensor}."""
+    if not records:
+        return []
+    keys = list(records[0])
+    flat = torch.cat([torch.cat([r[k].float().reshape(-1) for k in keys]) for r in records]).cpu().numpy()
+    widths = [records[0][k].numel() for k in keys]
+    out, offset = [], 0
+    for _ in records:
+        row = {}
+        for k, w in zip(keys, widths):
+            row[k] = flat[offset] if records[0][k].dim() == 0 else flat[offset:offset + w]
+            offset += w
+        out.append(row)
+    return out
+
+
 class Trainer:
-    def __init__(self, model, *, nummodalities: int = 2, device="cuda"):
+    def __init__(
+        self,
+        model,
+        optimizer=None,
+        *,
+        controller_kind: str = "none",
+        controller_config: Optional[dict] = None,
+        nummodalities: int = 2,
+        verbose: bool = True,
+        device="cuda",
+        seed: int = 777,
+    ):
         self.model = model
+        self.optimizer = optimizer
         self.nummodalities = nummodalities
         self.device = torch.device(device)
+        self.metrics_names = ["acc"]
+        self.verbose = verbose
+        self.stop_training = False
+        self.controller_kind = controller_kind
+        self.controller_config = controller_config or {}
+        self.ctrl = init_controller_state(nummodalities, self.device)
+        self._unlock = False
+        self.step = 0
+        self.curated_steps = 0
+        self._seed = int(seed)
+        self._flip_gen = torch.Generator(device=self.device)
+        if optimizer is None:
+            return
+        if controller_kind not in ("none", "guided"):
+            raise NotImplementedError(f"the {controller_kind!r} controller is not ported yet (see ROADMAP.md)")
+        if getattr(model, "saving_mmtm_scales", False) or getattr(model, "saving_mmtm_squeeze_array", False):
+            raise NotImplementedError("recording MMTM scales or squeeze maps during training is not ported yet "
+                                      "(see ROADMAP.md)")
+        branchnames = self.controller_config.get("branchnames") or [f"net_view_{i}" for i in range(nummodalities)]
+        mmtm_names = self.controller_config.get("mmtm_names") or list(model.modality_names)
+        self._reducer = GroupReducer([n for n, _ in model.named_parameters()], branchnames, mmtm_names)
+        if controller_kind == "guided" and self._reducer.empty_groups:
+            raise ValueError(
+                f"guided controller: no parameters matched group(s) {self._reducer.empty_groups}; "
+                "check branchnames/mmtm_names against the parameter names"
+            )
+        if controller_kind == "guided":
+            self._controller_update = functools.partial(
+                guided_update,
+                epsilon=self.controller_config["epsilon"],
+                curation_windowsize=self.controller_config["curation_windowsize"],
+            )
+        else:
+            self._controller_update = null_update
+
+    # --- handles used by callbacks ---
+
+    def reset_controller(self):
+        self.ctrl = init_controller_state(self.nummodalities, self.device)
+        self._unlock = False
+
+    def unlock_controller(self):
+        self._unlock = True
+
+    def get_lr(self):
+        return get_learning_rate(self.optimizer)
+
+    def set_lr(self, lr):
+        set_learning_rate(self.optimizer, lr)
+
+    def save_weights(self, filepath):
+        ckpt.save_weights(self.model, filepath, optimizer=self.optimizer, controller=self.ctrl.as_dict(),
+                          step=self.step)
 
     def load_weights(self, filepath):
         ckpt.load_weights(self.model, filepath)
+
+    # --- epoch loops ---
+
+    def _to_device(self, batch):
+        return {k: torch.from_numpy(batch[k]).to(self.device, non_blocking=True) for k in ("images", "labels", "mask")}
+
+    def train_flips(self, batch_size: int, views: int) -> torch.Tensor:
+        """The (B, V) flips of the next train step, a function of (seed,
+        step) drawn on the device."""
+        self._flip_gen.manual_seed(self._seed * 1_000_003 + self.step)
+        return draw_flips(batch_size, views, self._flip_gen)
+
+    def train_batch(self, data, flips, unlock) -> dict:
+        """One train step on a batch of device tensors with the (B, V)
+        ``flips`` and the () bool ``unlock``; advances the controller state
+        and the step count.  Returns the step's device outputs."""
+        self.ctrl, out = train_step(
+            self.model, self.optimizer, self._reducer, self._controller_update, self.ctrl, data, flips, unlock
+        )
+        self.step += 1
+        return out
+
+    def _train_epoch(self, generator, steps_per_epoch, callback_list):
+        records, sizes, indices = [], [], []
+        unlock = torch.tensor(self._unlock, device=self.device)
+        for batch_ind, batch in _steps(generator, steps_per_epoch):
+            batch_begin_time = timeit.default_timer()
+            callback_list.on_batch_begin(batch_ind, {})
+            callback_list.on_forward_begin(batch_ind, batch)
+            size = batch["size"]
+            data = self._to_device(batch)
+            out = self.train_batch(data, self.train_flips(*data["images"].shape[:2]), unlock)
+            callback_list.on_backward_end(batch_ind)
+            records.append(out)
+            sizes.append(size)
+            indices.append(np.asarray(batch["indices"])[:size])
+            batch_logs = {
+                "batch": batch_ind,
+                "size": size,
+                "time": timeit.default_timer() - batch_begin_time,
+                "batch_begin_time": batch_begin_time,
+                **{k: out[k] for k in ("loss", "acc", "d_BDR", "curation_mode", "caring_modality")},
+            }
+            for i in range(self.nummodalities):
+                batch_logs[f"acc_modal_{i}"] = out["acc_modal"][i]
+            callback_list.on_batch_end(batch_ind, batch_logs)
+
+        outs = _fetch(records)  # the epoch's one synchronization point
+        self.curated_steps += int(sum(bool(o["curated"]) for o in outs))
+        sizes = np.array(sizes, np.float64)
+        losses = np.array([o["loss"] for o in outs], np.float64)
+        total = sizes.sum()
+        train_dict = {
+            "loss": float((losses * sizes).sum() / total),
+            "train_indices": np.concatenate(indices) if indices else [],
+            "acc": float((np.array([o["acc"] for o in outs]) * sizes).sum() / total),
+            "_num_samples": float(total),
+        }
+        for i in range(self.nummodalities):
+            vals = np.array([o["acc_modal"][i] for o in outs])
+            train_dict[f"acc_modal_{i}"] = float((vals * sizes).sum() / total)
+        if np.isnan(losses).any():
+            self.stop_training = True
+        return train_dict
+
+    def _eval_generator(self, generator, phase, *, steps=None, callback_list=None):
+        """One validation or test pass with BatchNorm on its running
+        statistics, the live curation flags, and the MMTM running averages
+        updated in the buffers."""
+        if generator is None:
+            return {}
+        if steps is None:
+            steps = len(generator)
+        progress = ValidationProgressionCallback(phase=phase, steps=steps, metrics_names=["loss"] + self.metrics_names)
+        progress.set_model_pytoune(self)
+        records, sizes, indices = [], [], []
+        for batch_ind, batch in _steps(generator, steps):
+            batch_begin_time = timeit.default_timer()
+            progress.on_batch_begin(batch_ind, {})
+            size = batch["size"]
+            out = eval_step(self.model, self.ctrl, self._to_device(batch))
+            records.append(out)
+            sizes.append(size)
+            indices.append(np.asarray(batch["indices"])[:size])
+            batch_logs = {"batch": batch_ind, "size": size, "batch_begin_time": batch_begin_time,
+                          "loss": out["loss"], "acc": out["acc"]}
+            progress.on_batch_end(batch_ind, batch_logs)
+            if callback_list is not None and phase == "val":
+                callback_list.on_val_batch_end(batch_ind, batch_logs)
+
+        outs = _fetch(records)
+        sizes = np.array(sizes, np.float64)
+        total = max(sizes.sum(), 1.0)
+        losses = np.array([o["loss"] for o in outs], np.float64)
+        info = {
+            f"{phase}_loss": float((losses * sizes).sum() / total),
+            f"{phase}_indices": np.concatenate(indices) if indices else [],
+            f"{phase}_acc": float((np.array([o["acc"] for o in outs]) * sizes).sum() / total),
+        }
+        for i in range(self.nummodalities):
+            vals = np.array([o["acc_modal"][i] for o in outs])
+            info[f"{phase}_acc_modal_{i}"] = float((vals * sizes).sum() / total)
+        return info
+
+    def train_loop(
+        self,
+        train_generator,
+        test_generator=None,
+        valid_generator=None,
+        *,
+        epochs=1000,
+        steps_per_epoch=None,
+        validation_steps=None,
+        test_steps=None,
+        callbacks=(),
+        initial_epoch=1,
+    ):
+        """``framework.py:570-620``: for each epoch, train, then the
+        validation and test passes, then ``on_epoch_end`` with the merged
+        logs; stops after an epoch that set ``stop_training``."""
+        callback_list = CallbackList(list(callbacks))
+        if self.verbose:
+            callback_list.append(ProgressionCallback())
+        callback_list.set_model_pytoune(self)
+        callback_list.set_params({"epochs": epochs, "steps": steps_per_epoch})
+
+        self.stop_training = False
+        callback_list.on_train_begin({})
+        for epoch in range(initial_epoch, epochs + 1):
+            callback_list.on_epoch_begin(epoch, {})
+            epoch_begin_time = timeit.default_timer()
+            if hasattr(train_generator, "set_epoch"):
+                train_generator.set_epoch(epoch - 1)
+            train_dict = self._train_epoch(train_generator, steps_per_epoch, callback_list)
+            train_time = timeit.default_timer() - epoch_begin_time
+            val_dict = self._eval_generator(valid_generator, "val", steps=validation_steps,
+                                            callback_list=callback_list)
+            test_dict = self._eval_generator(test_generator, "test", steps=test_steps)
+            epoch_log = {
+                "epoch": epoch,
+                "time": timeit.default_timer() - epoch_begin_time,
+                "epoch_begin_time": epoch_begin_time,
+                "train_samples_per_sec": float(train_dict.pop("_num_samples", 0)) / max(train_time, 1e-9),
+                **train_dict,
+                **val_dict,
+                **test_dict,
+            }
+            callback_list.on_epoch_end(epoch, epoch_log)
+            if self.stop_training:
+                break
+        callback_list.on_train_end({})
+
+    # --- serving ---
 
     @torch.no_grad()
     def predict(self, generator, steps=None):

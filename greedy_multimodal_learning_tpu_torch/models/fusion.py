@@ -19,6 +19,7 @@ def fused_towers_forward(
     *,
     curation_mode,
     caring_modality,
+    train: bool,
     valid_mask,
     saving_scales: bool,
     saving_squeezes: bool,
@@ -34,7 +35,7 @@ def fused_towers_forward(
     scales = []
     squeezed_mps = []
     for li in (2, 3, 4):
-        feats = [towers[i].layer(li, feats[i]) for i in range(n)]
+        feats = [towers[i].layer(li, feats[i], train, valid_mask) for i in range(n)]
         feats, scale, squeezed = mmtms[li](
             feats,
             curation_mode=curation_mode,

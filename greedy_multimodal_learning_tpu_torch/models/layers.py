@@ -3,10 +3,9 @@
 
 Parameters and BatchNorm statistics stay float32 whatever the compute
 dtype; convolution and linear weights are cast to the activation's dtype at
-use, as flax's ``dtype=`` does.  BatchNorm here is eval-only: it normalizes
-with the running statistics in float32 and casts back to the compute dtype
-(``layers.py:94-95,118-120``).  Masked train-mode statistics come with the
-training slice.
+use, as flax's ``dtype=`` does.  BatchNorm computes in float32 and casts
+back to the compute dtype (``layers.py:83-120``); in train mode its batch
+statistics cover the unmasked rows only.
 """
 
 from __future__ import annotations
@@ -43,19 +42,36 @@ class Linear(nn.Linear):
 
 
 class BatchNorm2d(nn.BatchNorm2d):
-    """``nn.BatchNorm2d`` (eps 1e-5, momentum 0.1) evaluated as
-    ``TorchBatchNorm`` does with ``use_running_average=True``: the running
-    statistics and affine stay float32, the normalize runs in float32 and
-    the result is cast to the input's dtype (``layers.py:118-120``).
-    ``F.batch_norm`` does exactly that for a bfloat16 input with float32
-    statistics, in one pass."""
+    """``nn.BatchNorm2d`` (eps 1e-5, momentum 0.1) with ``TorchBatchNorm``'s
+    semantics (``layers.py:83-120``); the explicit ``train`` argument, not
+    ``self.training``, selects the statistics, as in the JAX package.
 
-    def forward(self, x):
-        if self.training:
-            raise NotImplementedError(
-                "train-mode (masked) BatchNorm statistics come with the training slice; call model.eval()"
-            )
-        return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias, False, 0.0, self.eps)
+    * ``train=False``: the running statistics, in one ``F.batch_norm`` pass
+      (float32 statistics and affine, float32 normalize, the result in the
+      input's dtype, as ``layers.py:118-120``).
+    * ``train=True``: batch statistics over the rows whose (B,) ``mask`` is
+      non-zero (all rows without a mask), in float32; the normalize uses
+      the biased variance, the running variance takes the unbiased one
+      ``var * n / max(n - 1, 1)``.  ``F.batch_norm`` cannot mask, so this is
+      plain torch ops."""
+
+    def forward(self, x, train: bool = False, mask=None):
+        if not train:
+            return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias, False, 0.0, self.eps)
+        xf = x.float()
+        m = torch.ones(x.shape[0], device=x.device) if mask is None else mask.float()
+        m = m.view(-1, 1, 1, 1)
+        n = m.sum() * (x.shape[2] * x.shape[3])
+        mean = (xf * m).sum(dim=(0, 2, 3)) / n
+        centered = xf - mean.view(1, -1, 1, 1)
+        var = (centered.square() * m).sum(dim=(0, 2, 3)) / n
+        with torch.no_grad():
+            unbiased = var * (n / torch.clamp(n - 1.0, min=1.0))
+            self.running_mean.mul_(1.0 - self.momentum).add_(self.momentum * mean)
+            self.running_var.mul_(1.0 - self.momentum).add_(self.momentum * unbiased)
+        inv = torch.rsqrt(var + self.eps) * self.weight
+        y = centered * inv.view(1, -1, 1, 1) + self.bias.view(1, -1, 1, 1)
+        return y.to(x.dtype)
 
 
 @torch.no_grad()

@@ -13,8 +13,9 @@
 Two gating paths compute steps 1-3 and the scale, as in the JAX package:
 the eager path (``mmtm.py:212-217``), where ``fc_*`` add their bias in the
 compute dtype, and the fused kernel path (``mmtm.py:168-211``,
-``use_pallas``), where :func:`~..ops.mmtm_gating.mmtm_gating` adds it in
-float32.  On CUDA tensors ``use_pallas=True`` means the CUDA kernel.
+``use_pallas``), where :class:`~..ops.mmtm_gating.MMTMGatingFunction` adds
+it in float32 and differentiates with the fused backward.  On CUDA tensors
+``use_pallas=True`` means the CUDA kernels, forward and backward.
 
 ``SEonly``, ``shareweight`` and ``turnoff_cross_modal_flow`` are not ported
 yet and raise.
@@ -28,7 +29,7 @@ import torch
 from torch import nn
 
 from .. import config as cfg
-from ..ops.mmtm_gating import mmtm_gating
+from ..ops.mmtm_gating import MMTMGatingFunction
 from .layers import Linear
 
 
@@ -131,7 +132,7 @@ class MMTM(nn.Module):
             f0, f1 = _as_bsc(features[0]), _as_bsc(features[1])
             cast = lambda t: t.to(dtype)
             e0, e1 = self._excite(0), self._excite(1)
-            out0, out1, s0, s1, g0, g1 = mmtm_gating(
+            out0, out1, s0, s1, g0, g1 = MMTMGatingFunction.apply(
                 f0, f1,
                 cast(self.fc_squeeze.weight), cast(self.fc_squeeze.bias),
                 cast(e0.weight), cast(e0.bias),

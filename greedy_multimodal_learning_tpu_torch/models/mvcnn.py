@@ -83,11 +83,14 @@ class MMTMMVCNN(nn.Module):
         curation_mode=None,
         caring_modality=None,
         *,
+        train: bool = False,
         valid_mask: Optional[torch.Tensor] = None,
         mmtm_state: Optional[dict] = None,
     ):
         """x: (B, num_towers, H, W, C) image stack.
 
+        ``train`` selects batch statistics (masked by ``valid_mask``) in
+        every BatchNorm, as ``mvcnn.py:97-118`` of the JAX package does.
         Returns (blend_logits, [per-view logits], scales, squeezed_mps).
         ``mmtm_state``: see :func:`~.fusion.fused_towers_forward`."""
         x = x.to(self.dtype)
@@ -95,13 +98,14 @@ class MMTMMVCNN(nn.Module):
         feats = []
         for i, tower in enumerate(towers):
             xi = x[:, i].permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
-            feats.append(tower.layer(1, tower.stem(xi)))
+            feats.append(tower.layer(1, tower.stem(xi, train, valid_mask), train, valid_mask))
         return fused_towers_forward(
             towers,
             self.mmtms,
             feats,
             curation_mode=curation_mode,
             caring_modality=caring_modality,
+            train=train,
             valid_mask=valid_mask,
             saving_scales=self.saving_mmtm_scales,
             saving_squeezes=self.saving_mmtm_squeeze_array,

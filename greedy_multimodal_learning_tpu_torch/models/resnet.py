@@ -1,7 +1,9 @@
 """ResNet-18 trunk with the split ``stem`` / ``layer(i)`` / ``head`` API
 (``greedy_multimodal_learning_tpu/models/resnet.py:78-157``).
 
-Module and attribute names are torchvision's, which is also the state_dict
+``train`` and the (B,) validity ``mask`` reach every BatchNorm
+(``resnet.py:85-96,127-146``).  Module and attribute names are
+torchvision's, which is also the state_dict
 naming the JAX package writes (``engine/checkpoint.py:42-82``), so a
 JAX-written checkpoint loads with ``load_state_dict`` directly.  Activations
 are NCHW tensors in ``torch.channels_last`` memory, so a (B, C, H, W) map is
@@ -26,10 +28,13 @@ class BasicBlock(nn.Module):
         self.bn2 = BatchNorm2d(cout)
         self.downsample = nn.Sequential(conv1x1(cin, cout, stride), BatchNorm2d(cout)) if downsample else None
 
-    def forward(self, x):
-        identity = x if self.downsample is None else self.downsample(x)
-        out = torch.relu(self.bn1(self.conv1(x)))
-        out = self.bn2(self.conv2(out))
+    def forward(self, x, train: bool = False, mask=None):
+        identity = x
+        if self.downsample is not None:
+            conv, bn = self.downsample
+            identity = bn(conv(x), train, mask)
+        out = torch.relu(self.bn1(self.conv1(x), train, mask))
+        out = self.bn2(self.conv2(out), train, mask)
         return torch.relu(out + identity)
 
 
@@ -51,13 +56,17 @@ class ResNet18Trunk(nn.Module):
             cin = width
         self.fc = Linear(512, nclasses)
 
-    def stem(self, x):
-        x = torch.relu(self.bn1(self.conv1(x)))
+    def stem(self, x, train: bool = False, mask=None):
+        x = torch.relu(self.bn1(self.conv1(x), train, mask))
         return F.max_pool2d(x, 3, 2, 1)
 
-    def layer(self, i: int, x):
-        """Run layer group i (1-based, mirroring torchvision layer1..layer4)."""
-        return getattr(self, f"layer{i}")(x)
+    def layer(self, i: int, x, train: bool = False, mask=None):
+        """Run layer group i (1-based, mirroring torchvision layer1..layer4).
+        The blocks sit in an ``nn.Sequential`` for torchvision's state_dict
+        names; they run one by one so that each gets ``train`` and ``mask``."""
+        for block in getattr(self, f"layer{i}"):
+            x = block(x, train, mask)
+        return x
 
     def head(self, x):
         """Global average pool in float32, cast to the compute dtype, then fc

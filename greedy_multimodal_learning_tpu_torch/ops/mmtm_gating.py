@@ -1,11 +1,17 @@
-"""Fused MMTM gating forward: the CUDA kernel, its plain PyTorch version,
-and the wrapper that picks between them by device.
+"""Fused MMTM gating, forward and backward: the CUDA kernels, their plain
+PyTorch versions, the wrappers that pick between them by device, and the
+``torch.autograd.Function`` that binds the two.
 
-Replaces the Pallas TPU kernel ``_gating_kernel``
-(``greedy_multimodal_learning_tpu/ops/mmtm_pallas.py:47-78``, launched by
-``_fused_forward`` at :95-147 and bound as ``fused_mmtm_gating``).  The
-kernel is ``csrc/mmtm_gating.cu``; its header says what bounds it on an
-H100 (memory: one read and one write of both feature maps) and how its four
+Replaces the Pallas TPU kernels of
+``greedy_multimodal_learning_tpu/ops/mmtm_pallas.py``, bound there as the
+``jax.custom_vjp`` ``fused_mmtm_gating`` (:281-388):
+
+* ``_gating_kernel`` (:47-78, launched by ``_fused_forward`` :95-147) by
+  :func:`mmtm_gating`, kernel ``csrc/mmtm_gating.cu``;
+* ``_gating_bwd_kernel`` (:150-226, launched by ``_fused_backward``
+  :229-278) by :func:`mmtm_gating_bwd`, kernel ``csrc/mmtm_gating_bwd.cu``.
+
+Each source's header says what bounds it on an H100 (memory) and how its
 passes stand against that bound.
 
 Layouts follow the JAX kernel's features and torch's weights: ``f0``, ``f1``
@@ -23,9 +29,11 @@ import torch
 from .build import load
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# The row-product passes stage a tile of 8 samples' inputs in static-size
-# shared memory (48 KB without an opt-in).
+# The row-product passes stage a tile of 8 samples' inputs in shared memory
+# (48 KB without an opt-in); the backward's column products also keep 8 KB of
+# partial sums there.
 _MAX_ROW_INPUT = 48 * 1024 // (8 * 4)
+_MAX_BWD_ROW_INPUT = (48 * 1024 - 8 * 1024) // (8 * 4)
 
 
 def mmtm_gating_plain(f0, f1, wsq, bsq, w0, b0, w1, b1):
@@ -46,6 +54,9 @@ def mmtm_gating_plain(f0, f1, wsq, bsq, w0, b0, w1, b1):
 
 
 def _check(f0, f1, wsq, bsq, w0, b0, w1, b1):
+    """Shapes, devices, dtypes and contiguity of the gating inputs; the
+    biases b0, b1 may be None (the backward does not read them).  Returns
+    (B, S, C, D)."""
     if f0.dim() != 3 or f0.shape != f1.shape:
         raise ValueError(f"f0 and f1 must be (B, S, C) of one shape, got {tuple(f0.shape)} and {tuple(f1.shape)}")
     B, S, C = f0.shape
@@ -57,6 +68,7 @@ def _check(f0, f1, wsq, bsq, w0, b0, w1, b1):
         "w0": (w0, (C, D)), "b0": (b0, (C,)),
         "w1": (w1, (C, D)), "b1": (b1, (C,)),
     }
+    expected = {k: v for k, v in expected.items() if v[0] is not None}
     for name, (t, shape) in expected.items():
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} must have shape {shape} for C={C}, D={D}; got {tuple(t.shape)}")
@@ -83,17 +95,12 @@ def mmtm_gating(f0, f1, wsq, bsq, w0, b0, w1, b1):
     B, S, C, D = _check(f0, f1, wsq, bsq, w0, b0, w1, b1)
     if f0.device.type == "cpu":
         return mmtm_gating_plain(f0, f1, wsq, bsq, w0, b0, w1, b1)
-    if f0.device.type != "cuda":
-        raise ValueError(f"mmtm_gating runs on CPU or CUDA tensors, got {f0.device}")
-    if C % 8:
-        raise ValueError(f"the CUDA kernel needs C % 8 == 0 (16-byte vectors), got C={C}")
-    if B > 65535:
-        raise ValueError(f"the CUDA kernel's squeeze grid takes B up to 65535, got {B}")
-    if max(2 * C, D) > _MAX_ROW_INPUT:
-        raise ValueError(f"the CUDA kernel supports 2C and D up to {_MAX_ROW_INPUT}, got C={C}, D={D}")
-    for name, t in (("f0", f0), ("f1", f1)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned for vector loads")
+    _check_kernel_shapes("mmtm_gating", f0, f1, B, C, D, _MAX_ROW_INPUT)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (f0, f1, wsq, bsq, w0, b0, w1, b1)):
+        raise RuntimeError(
+            "mmtm_gating's CUDA kernel returns tensors without a grad_fn; to train through it call "
+            "MMTMGatingFunction.apply, or call mmtm_gating under torch.no_grad()"
+        )
 
     out0 = torch.empty_like(f0)
     out1 = torch.empty_like(f1)
@@ -116,6 +123,20 @@ def mmtm_gating(f0, f1, wsq, bsq, w0, b0, w1, b1):
 mmtm_gating.launches = 0
 
 
+def _check_kernel_shapes(what, f0, f1, B, C, D, max_row_input):
+    if f0.device.type != "cuda":
+        raise ValueError(f"{what} runs on CPU or CUDA tensors, got {f0.device}")
+    if C % 8:
+        raise ValueError(f"the CUDA kernel needs C % 8 == 0 (16-byte vectors), got C={C}")
+    if B > 65535:
+        raise ValueError(f"the CUDA kernel's reduction grid takes B up to 65535, got {B}")
+    if max(2 * C, D) > max_row_input:
+        raise ValueError(f"the CUDA kernel supports 2C and D up to {max_row_input}, got C={C}, D={D}")
+    for name, t in (("f0", f0), ("f1", f1)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned for vector loads")
+
+
 def _library():
     lib = load("mmtm_gating")
     fn = lib.mmtm_gating_forward
@@ -123,3 +144,117 @@ def _library():
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     return lib
+
+
+def mmtm_gating_bwd_plain(do0, do1, f0, f1, g0, g1, sq0, sq1, wsq, bsq, w0, w1,
+                          dg0c=None, dg1c=None, dsq0c=None, dsq1c=None):
+    """Plain PyTorch version of the fused backward, the arithmetic of
+    ``_bwd_pallas`` / ``_bwd_jax`` (``mmtm_pallas.py:309-385``) in torch's
+    weight layout: ``do_i`` rounded to the features' dtype, everything else
+    in f32, ``pre`` recomputed from the unrounded f32 squeeze.  ``None``
+    cotangents on sq or g are zero.  Returns (df0, df1) in the features'
+    dtype and the f32 gradients (dwsq (D, 2C), dbsq, dw0 (C, D), db0, dw1,
+    db1)."""
+    S, C = f0.shape[1], f0.shape[2]
+    add = lambda x, c: x if c is None else x + c.float()
+    do0, do1 = do0.to(f0.dtype).float(), do1.to(f1.dtype).float()
+    dz0 = add((do0 * f0.float()).sum(dim=1), dg0c) * g0 * (1.0 - g0)
+    dz1 = add((do1 * f1.float()).sum(dim=1), dg1c) * g1 * (1.0 - g1)
+    joint = torch.cat([sq0, sq1], dim=1)
+    wsqf = wsq.float()
+    pre = joint @ wsqf.t() + bsq.float()
+    e = torch.relu(pre)
+    de = (dz0 @ w0.float() + dz1 @ w1.float()) * (pre > 0.0)
+    djoint = de @ wsqf
+    dsq0, dsq1 = add(djoint[:, :C], dsq0c), add(djoint[:, C:], dsq1c)
+    df0 = (do0 * g0[:, None, :] + dsq0[:, None, :] / S).to(f0.dtype)
+    df1 = (do1 * g1[:, None, :] + dsq1[:, None, :] / S).to(f1.dtype)
+    return df0, df1, de.t() @ joint, de.sum(dim=0), dz0.t() @ e, dz0.sum(dim=0), dz1.t() @ e, dz1.sum(dim=0)
+
+
+def mmtm_gating_bwd(do0, do1, f0, f1, g0, g1, sq0, sq1, wsq, bsq, w0, w1,
+                    dg0c=None, dg1c=None, dsq0c=None, dsq1c=None):
+    """Fused MMTM gating backward (see :func:`mmtm_gating_bwd_plain` for
+    the arithmetic and the results).  ``do_i`` are (B, S, C) in the
+    features' dtype; ``g_i``, ``sq_i`` and the optional row cotangents are
+    (B, C) float32; the weights are the forward's.
+
+    On CPU tensors it runs :func:`mmtm_gating_bwd_plain`; on CUDA tensors
+    it launches the kernel (building it at first use) or raises.  Each
+    kernel launch adds one to ``mmtm_gating_bwd.launches``."""
+    B, S, C, D = _check(f0, f1, wsq, bsq, w0, None, w1, None)
+    rows = {"g0": g0, "g1": g1, "sq0": sq0, "sq1": sq1, "dg0c": dg0c, "dg1c": dg1c, "dsq0c": dsq0c, "dsq1c": dsq1c}
+    for name, t in {"do0": do0, "do1": do1}.items():
+        if t.shape != f0.shape or t.dtype != f0.dtype or t.device != f0.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {tuple(f0.shape)} {f0.dtype} tensor on {f0.device}")
+    for name, t in rows.items():
+        if t is not None and (t.shape != (B, C) or t.dtype != torch.float32 or t.device != f0.device
+                              or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous ({B}, {C}) float32 tensor on {f0.device}")
+    if f0.device.type == "cpu":
+        return mmtm_gating_bwd_plain(do0, do1, f0, f1, g0, g1, sq0, sq1, wsq, bsq, w0, w1, dg0c, dg1c, dsq0c, dsq1c)
+    _check_kernel_shapes("mmtm_gating_bwd", f0, f1, B, C, D, _MAX_BWD_ROW_INPUT)
+    for name, t in (("do0", do0), ("do1", do1)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned for vector loads")
+
+    f32 = lambda *shape: torch.empty(shape, dtype=torch.float32, device=f0.device)
+    df0, df1 = torch.empty_like(f0), torch.empty_like(f1)
+    grads = [f32(D, 2 * C), f32(D), f32(C, D), f32(C), f32(C, D), f32(C)]
+    scratch = [f32(B, C), f32(B, C), f32(B, D), f32(B, D), f32(B, C), f32(B, C)]  # dz0 dz1 pre de dsq0 dsq1
+    ptr = lambda t: None if t is None else t.data_ptr()
+
+    lib = _bwd_library()
+    with torch.cuda.device(f0.device):
+        stream = torch.cuda.current_stream(f0.device).cuda_stream
+        err = lib.mmtm_gating_backward(
+            *(ptr(t) for t in (do0, do1, f0, f1, g0, g1, sq0, sq1, wsq, bsq, w0, w1, dg0c, dg1c, dsq0c, dsq1c,
+                               df0, df1, *grads, *scratch)),
+            B, S, C, D, _DTYPE_CODES[f0.dtype], stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"mmtm_gating_backward launch failed: CUDA error {err}")
+    mmtm_gating_bwd.launches += 1
+    return (df0, df1, *grads)
+
+
+mmtm_gating_bwd.launches = 0
+
+
+def _bwd_library():
+    lib = load("mmtm_gating_bwd")
+    fn = lib.mmtm_gating_backward
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 30 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    return lib
+
+
+class MMTMGatingFunction(torch.autograd.Function):
+    """The fused gating forward and backward under autograd, as
+    ``fused_mmtm_gating``'s ``custom_vjp`` binds them (``mmtm_pallas.py:
+    281-388``): the forward saves the features, the weights and the f32
+    squeeze and gate rows; the backward takes cotangents on all six outputs
+    (``None`` for an unused one) and returns the weights' gradients in the
+    weights' dtypes.  On CUDA tensors both directions launch kernels."""
+
+    @staticmethod
+    def forward(ctx, f0, f1, wsq, bsq, w0, b0, w1, b1):
+        outs = mmtm_gating(f0, f1, wsq, bsq, w0, b0, w1, b1)
+        ctx.save_for_backward(f0, f1, wsq, bsq, w0, w1, *outs[2:])
+        ctx.bias_dtypes = (b0.dtype, b1.dtype)
+        ctx.set_materialize_grads(False)
+        return outs
+
+    @staticmethod
+    def backward(ctx, do0, do1, dsq0, dsq1, dg0, dg1):
+        f0, f1, wsq, bsq, w0, w1, sq0, sq1, g0, g1 = ctx.saved_tensors
+        do0 = torch.zeros_like(f0) if do0 is None else do0.to(f0.dtype).contiguous()
+        do1 = torch.zeros_like(f1) if do1 is None else do1.to(f1.dtype).contiguous()
+        row = lambda t: None if t is None else t.float().contiguous()
+        df0, df1, dwsq, dbsq, dw0, db0, dw1, db1 = mmtm_gating_bwd(
+            do0, do1, f0, f1, g0, g1, sq0, sq1, wsq, bsq, w0, w1, row(dg0), row(dg1), row(dsq0), row(dsq1)
+        )
+        b0_dtype, b1_dtype = ctx.bias_dtypes
+        return (df0, df1, dwsq.to(wsq.dtype), dbsq.to(bsq.dtype), dw0.to(w0.dtype), db0.to(b0_dtype),
+                dw1.to(w1.dtype), db1.to(b1_dtype))

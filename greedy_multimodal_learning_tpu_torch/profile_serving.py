@@ -49,6 +49,24 @@ def _events_ms(fn):
     return start.elapsed_time(end), out
 
 
+def device_rows(prof, steps):
+    """(ms per step, kernel name) of the profiled device-side events
+    (kernels, memcpy, memset), largest first.  The CPU-side aten ops carry
+    their kernels' time too and would count it twice."""
+    rows = [
+        (e.self_device_time_total / 1e3 / steps, e.key)
+        for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+    ]
+    return sorted(rows, reverse=True)
+
+
+def smi_line():
+    """The card's name and power limit as ``nvidia-smi`` prints them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+
+
 def profile_config(dtype, use_pallas, batch, steps):
     model = init_model(MMTMMVCNN(nclasses=40, use_pallas=use_pallas, dtype=dtype), 0, "cuda")
     trainer = Trainer(model, nummodalities=2, device="cuda")
@@ -82,14 +100,7 @@ def profile_config(dtype, use_pallas, batch, steps):
             trainer._predict_step(host)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    # device-side events only (kernels, memcpy, memset): the CPU-side aten
-    # ops carry their kernels' time too and would count it twice
-    rows = [
-        (e.self_device_time_total / 1e3 / steps, e.key)
-        for e in prof.key_averages()
-        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
-    ]
-    rows.sort(reverse=True)
+    rows = device_rows(prof, steps)
     busy_ms = sum(ms for ms, _ in rows)
     gating_ms = sum(ms for ms, name in rows if re.search(GATING_KERNELS, name))
     return {
@@ -117,9 +128,7 @@ def main() -> int:
         return 1
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
-    print(f"# {smi} | torch {torch.__version__}", flush=True)
+    print(f"# {smi_line()} | torch {torch.__version__}", flush=True)
     for dtype in (torch.float32, torch.bfloat16):
         for use_pallas in (True, False):
             print(json.dumps(profile_config(dtype, use_pallas, args.batch, args.steps)), flush=True)
