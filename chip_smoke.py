@@ -11,7 +11,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    sources in this checkout; TF32 off for the float32 phases;
 2. the forward kernel against its plain PyTorch version on the card at the
    shapes the model gives it (the three 224² fusion sites at B=128, plus a
-   ragged B=5), float32 and bfloat16, with times from CUDA events;
+   ragged B=5, and an oversize sample, S=3136 at C=128, that takes the
+   streaming plan in float32), float32 and bfloat16; two runs give the same
+   bits; one call is one CUDA launch (counted by the kernel's C code at
+   each launch, and seen on the card by the profiler); times from
+   CUDA events, and each site's launch plan (cluster size, samples a tile,
+   resident maps, shared memory, clusters on the card);
 3. the serving path at full width: ``predict_`` with
    ``configs/training_guided.gin`` + ``MMTM_mitigate.use_pallas=True`` over a
    synthetic 224², 2-view, 40-class split of 200 test samples (one padded
@@ -20,9 +25,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    kernel's launch count must show every fusion site of every batch; the
    float32 logits must agree with the eager gating path, and a small input
    must agree with the port's CPU forward;
-4. the backward kernel against its plain version at the same shapes and
-   dtypes, with its time beside the bound, the plain version's and torch
-   autograd of the eager gating's;
+4. the backward kernels against their plain version at the same shapes and
+   dtypes (oversize included), two runs bit-identical, two CUDA launches a
+   call (counted as in phase 2), with the time beside the bound, the plain
+   version's and torch autograd of the eager gating's;
 5. the training path at full width: the ``train`` entry with
    ``configs/training_guided.gin`` + ``MMTM_mitigate.use_pallas=True``,
    ``train.batch_size=128``, over a synthetic split of 256 train, 128
@@ -69,6 +75,9 @@ from greedy_multimodal_learning_tpu_torch.entries import train
 from greedy_multimodal_learning_tpu_torch.models import MMTMMVCNN
 from greedy_multimodal_learning_tpu_torch.ops import build as kernel_build
 from greedy_multimodal_learning_tpu_torch.ops.mmtm_gating import (
+    cuda_launches,
+    kernel_plan,
+    max_active_clusters,
     mmtm_gating,
     mmtm_gating_bwd,
     mmtm_gating_bwd_plain,
@@ -91,6 +100,13 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 
 SITES = {"mmtm2": (784, 128), "mmtm3": (196, 256), "mmtm4": (49, 512)}  # (S, C) at 224²
 BATCH = 128
+# checked, not timed: a ragged batch, and mmtm2 at 448² (1.53 MiB per f32
+# map, beyond a cluster's shared memory: the streaming plan in float32)
+EXTRA_CASES = [("mmtm3_ragged", 5, 196, 256), ("mmtm2_448_oversize", 3, 3136, 128)]
+LAUNCHES_PER_CALL = {"fwd": 1, "bwd": 2}  # CUDA launches a wrapper call makes
+OWN_KERNELS = {"fwd": ("gating_fwd_kernel",), "bwd": ("gating_bwd_map_kernel", "weight_grad_kernel")}
+PROFILER_TRIES = 3
+SENTINEL_CYCLES = 20_000  # the profiler's sentinel kernel, about 10 us
 N_TEST = 200
 TOL = {
     # f32: same arithmetic, other summation order
@@ -124,6 +140,7 @@ BWD_TOL = {
 # beside the result.
 STEP_TOL = 1e-2
 N_TRAIN, N_VAL, N_TRAIN_TEST = 256, 128, 128
+SLEEP_CYCLES = 2_000_000  # about 1 ms of device time: longer than any wrapper's host work
 CPU_LOGIT_TOL = (1e-4, 1e-4)  # (rtol, atol): cuDNN without TF32 vs the CPU's f32 convolutions
 
 
@@ -173,13 +190,16 @@ def eager_gating(f0, f1, wsq, bsq, w0, b0, w1, b1):
 
 def time_ms(fn, args, iters=20, warmup=3):
     """Median device time of one call, L2 flushed before each (a fusion
-    site's input arrives from the previous layer, not from a warm L2)."""
+    site's input arrives from the previous layer, not from a warm L2).  A
+    device-side sleep after the flush keeps the card busy while the host
+    enqueues the call, so the events time the device and not the host."""
     flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device="cuda")
     for _ in range(warmup):
         fn(*args)
     times = []
     for _ in range(iters):
         flush.zero_()
+        torch.cuda._sleep(SLEEP_CYCLES)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         fn(*args)
@@ -218,9 +238,60 @@ def check_close(name, got, want, rtol, atol):
     return float((got - want).abs().max())
 
 
+def profiled_kernels(direction, fn, args):
+    """(kernels of the direction's library, other kernels) that torch.profiler
+    saw on the card in one call of fn, with one ``torch.cuda._sleep`` kernel
+    started first in the same window as a sentinel.  A trace without the
+    sentinel lost the card's activity and is taken again, up to
+    PROFILER_TRIES times; None when every try lost it."""
+    for attempt in range(PROFILER_TRIES):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.01)  # the window opens well before the first kernel and closes well after the last
+            torch.cuda._sleep(SENTINEL_CYCLES)
+            fn(*args)
+            torch.cuda.synchronize()
+            time.sleep(0.01)
+        # every kernel the card ran, by event type: a time filter drops kernels
+        # shorter than the trace's 1 us resolution
+        kernels = [e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA and "mem" not in e.name.lower()]
+        own = sum(any(k in name for k in OWN_KERNELS[direction]) for name in kernels)
+        other = len(kernels) - own
+        if other:
+            return own, other
+        log(f"[profiler] {direction}: try {attempt + 1} traced no sentinel kernel ({own} of the call's)")
+    return None
+
+
+def check_launches_per_call(direction, fn, args):
+    """The CUDA launches one call of fn makes, counted by the kernels' C
+    code at each launch, and the call's kernels the profiler saw on the card
+    (None when it traced nothing); fails unless both are the expected count
+    and the profiler saw no other kernel than its sentinel."""
+    want = LAUNCHES_PER_CALL[direction]
+    before = cuda_launches(direction)
+    fn(*args)
+    issued = cuda_launches(direction) - before
+    if issued != want:
+        raise AssertionError(f"{direction}: one call launched {issued} CUDA kernels, want {want}")
+    seen = profiled_kernels(direction, fn, args)
+    if seen is not None and seen != (want, 1):
+        raise AssertionError(f"{direction}: the profiler saw {seen[0]} kernels of one call and {seen[1]} others "
+                             f"(the sentinel is one), want {want} and 1")
+    return {"cuda_launches": issued, "profiled_kernels": None if seen is None else seen[0]}
+
+
+def plan_report(direction, B, S, C, dtype):
+    """The launch plan the kernel took for this shape, and how many of its
+    clusters the card holds at once."""
+    plan = kernel_plan(direction, B, S, C, C, dtype)
+    return {"mode": plan.mode, **plan._asdict(), "clusters_on_card": max_active_clusters(direction, dtype, plan)}
+
+
 def kernel_phase():
     """Kernel vs plain at the serving path's shapes; returns per-dtype timing."""
-    cases = [(name, BATCH, S, C) for name, (S, C) in SITES.items()] + [("mmtm3_ragged", 5, 196, 256)]
+    cases = [(name, BATCH, S, C) for name, (S, C) in SITES.items()] + EXTRA_CASES
     report = {}
     for dtype in (torch.float32, torch.bfloat16):
         tol = TOL[dtype]
@@ -229,12 +300,19 @@ def kernel_phase():
             args = gating_inputs(B, S, C, dtype, seed)
             got = mmtm_gating(*args)
             torch.cuda.synchronize()
+            again = mmtm_gating(*args)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"{name} {dtype}: two runs of the forward kernel differ")
+            plan = plan_report("fwd", B, S, C, dtype)
+            log(f"[kernel] {name} {str(dtype)[6:]} B={B} S={S} C={C}: plan {json.dumps(plan)}")
             want = mmtm_gating_plain(*args)
             for label, a, b in zip(("out0", "out1", "sq0", "sq1", "g0", "g1"), got, want):
                 rtol, atol = tol[label[:-1]]
                 max_err = max(max_err, check_close(f"{name} {dtype} {label}", a, b, rtol, atol))
-            if B != BATCH:
+            if name not in SITES:  # checked, not timed
                 continue
+            plan.update(check_launches_per_call("fwd", mmtm_gating, args))
             bms, bby = bound_ms(B, S, C, dtype)
             per_site[name] = {
                 "shape": [B, S, C],
@@ -243,6 +321,7 @@ def kernel_phase():
                 "eager_ms": time_ms(eager_gating, args),
                 "bound_ms": bms,
                 "bound_by": bby,
+                "plan": plan,
             }
             log(f"[kernel] {name} {str(dtype)[6:]} B={B} S={S} C={C}: " + json.dumps(per_site[name]))
         totals = {k: sum(site[k] for site in per_site.values()) for k in ("ms", "plain_ms", "eager_ms", "bound_ms")}
@@ -418,7 +497,7 @@ def backward_kernel_phase():
         log("[bwd kernel] a direct forward-kernel call on tensors that need a gradient raises, as it must")
     else:
         raise AssertionError("mmtm_gating returned tensors detached from autograd instead of raising")
-    cases = [(name, BATCH, S, C) for name, (S, C) in SITES.items()] + [("mmtm3_ragged", 5, 196, 256)]
+    cases = [(name, BATCH, S, C) for name, (S, C) in SITES.items()] + EXTRA_CASES
     names = ("df0", "df1", "dwsq", "dbsq", "dw0", "db0", "dw1", "db1")
     report = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -432,13 +511,16 @@ def backward_kernel_phase():
             torch.cuda.synchronize()
             if not all(torch.equal(a, b) for a, b in zip(got, again)):
                 raise AssertionError(f"{name} {dtype}: two runs of the backward kernel differ")
+            plan = plan_report("bwd", B, S, C, dtype)
+            log(f"[bwd kernel] {name} {str(dtype)[6:]} B={B} S={S} C={C}: plan {json.dumps(plan)}")
             want = mmtm_gating_bwd_plain(*args)
             for label, a, b in zip(names, got, want):
                 rtol, atol = tol["df" if label.startswith("df") else "dw"]
                 atol *= float(b.abs().max())
                 max_err = max(max_err, check_close(f"bwd {name} {dtype} {label}", a, b, rtol, atol))
-            if B != BATCH:
+            if name not in SITES:  # checked, not timed
                 continue
+            plan.update(check_launches_per_call("bwd", mmtm_gating_bwd, args))
             bms, bby = bwd_bound_ms(B, S, C, dtype)
             per_site[name] = {
                 "shape": [B, S, C],
@@ -447,6 +529,7 @@ def backward_kernel_phase():
                 "eager_autograd_ms": time_ms(eager_autograd_backward(args, biases), ()),
                 "bound_ms": bms,
                 "bound_by": bby,
+                "plan": plan,
             }
             log(f"[bwd kernel] {name} {str(dtype)[6:]} B={B} S={S} C={C}: " + json.dumps(per_site[name]))
         keys = ("ms", "plain_ms", "eager_autograd_ms", "bound_ms")
@@ -672,6 +755,9 @@ def main() -> int:
     def bound_by(report):
         return "bytes" if all(s["bound_by"] == "bytes" for s in report["sites"].values()) else "operations"
 
+    def cuda_launches_per_call(*reports):  # counted at every site, both dtypes
+        return max(site["plan"]["cuda_launches"] for r in reports for site in r["sites"].values())
+
     f32, bf16 = timing[torch.float32], timing[torch.bfloat16]
     bf32, bbf16 = bwd_timing[torch.float32], bwd_timing[torch.bfloat16]
     kernels = [{
@@ -680,6 +766,7 @@ def main() -> int:
         "source": "greedy_multimodal_learning_tpu_torch/csrc/mmtm_gating.cu",
         "replaces": "greedy_multimodal_learning_tpu/ops/mmtm_pallas.py:47",
         "replaces_kernel": "_gating_kernel",
+        "cuda_launches_per_call": cuda_launches_per_call(f32, bf16),
         # main path: the f32 training run (train steps and eval batches)
         "launches": training["f32"]["fwd_launches"],
         "launches_bf16": training["bf16"]["fwd_launches"],
@@ -703,6 +790,7 @@ def main() -> int:
         "source": "greedy_multimodal_learning_tpu_torch/csrc/mmtm_gating_bwd.cu",
         "replaces": "greedy_multimodal_learning_tpu/ops/mmtm_pallas.py:150",
         "replaces_kernel": "_gating_bwd_kernel",
+        "cuda_launches_per_call": cuda_launches_per_call(bf32, bbf16),
         "launches": training["f32"]["bwd_launches"],
         "launches_bf16": training["bf16"]["bwd_launches"],
         "max_abs_err": bf32["max_abs_err"],

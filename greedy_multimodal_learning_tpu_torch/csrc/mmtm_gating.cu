@@ -1,4 +1,4 @@
-// Fused MMTM gating forward for Hopper (sm_90a).
+// Fused MMTM gating forward for Hopper (sm_90a): one cluster launch a call.
 //
 // Replaces the Pallas TPU kernel `_gating_kernel`
 // (greedy_multimodal_learning_tpu/ops/mmtm_pallas.py:47-78, launched by
@@ -13,233 +13,218 @@
 // model casts them to the compute dtype (models/mmtm.py:193-205).  Weights are
 // read in place in torch's nn.Linear (out, in) layout: Wsq (D, 2C), W_i (C, D).
 //
-// What bounds it on an H100: memory.  The least traffic is one read of f0 and
-// f1 and one write of out0 and out1; the two excitation products are
-// B*(2C*D + 2*D*C) multiply-adds, far below the card's arithmetic rate.  The
-// TPU kernel holds a whole batch block of both maps in VMEM and so reads each
-// map once.  One sample at the first fusion site (784 x 128 values per
-// modality, 400 KB in f32) exceeds the 227 KB of shared memory a block may
-// use, so this first design runs four passes instead:
+// What bounds it on an H100: bytes.  The least traffic is four map streams:
+// one read of f0 and f1, one write of out0 and out1, B*S*C*sizeof(T) bytes
+// each (at 224², B=128, f32: 51.4 MB per stream at mmtm2 (S=784, C=128),
+// 25.7 MB at mmtm3 (196, 256), 12.8 MB at mmtm4 (49, 512); bf16 half).  The
+// products are B*(2C*D + 2*D*C) multiply-adds, far below the arithmetic rate,
+// but every tile reads the 4*C*D weights from L2.
 //
-//   1. squeeze: one block per (channel tile, sample, modality) reduces over S
-//      with warp loads that run along C (coalesced in the (B, S, C) layout);
-//   2. excitation: e for a tile of samples x outputs, the sample tile's
-//      rounded joint squeeze in shared memory, so each weight row read from
-//      L2 serves every sample of the tile;
-//   3. gates: the same product shape for g0 and g1 (blockIdx.z picks one);
-//   4. scale: out_i = f_i * g_i with 16-byte vector loads and stores.
+// The TPU kernel holds a batch block of both maps in VMEM
+// (mmtm_pallas.py:81-92, up to 12 MB) and reads each map once.  A Hopper
+// block has at most 227 KB of shared memory, less than one mmtm2 sample's map
+// (392 KiB in f32).  A thread-block cluster of K = 8 CTAs holds 8 x 227 KB
+// and its CTAs read each other's shared memory (DSMEM), so here a cluster
+// takes the VMEM block's place.  Persistent clusters walk tiles of n samples;
+// for each tile:
 //
-// The maps are read twice (passes 1 and 4), so the traffic is about 1.5x the
-// bound.  A one-pass design that keeps the second read in L2, and wgmma for
-// the products, are later work.
+//   1. Each CTA bulk-copies its share of every sample's rows of f0 and f1
+//      (rows [s0, s0 + ns) of S, one contiguous run each) into shared memory.
+//   2. It reduces them to per-channel partial sums (16-byte loads).
+//   3. Every CTA adds the K partials over DSMEM in rank order (the same bits
+//      in every CTA and every run) -> sq; the leader (rank 0) stores sq.
+//   4. The CTAs split e's D outputs and push their shares of e to each other
+//      over DSMEM, then split the gates' 2C outputs and push g the same way:
+//      each weight is read from L2 once a tile.
+//   5. Each CTA scales its shared-memory rows by round_T(g) and stores them.
+//
+// f0 and f1 cross HBM once (the bulk copies), out0 and out1 once (the
+// stores): the bound's four streams.  A tile also costs a fixed chain (three
+// cluster syncs, two products whose weight loads wait on a memory system
+// the other clusters keep busy), so the plan (ops/mmtm_gating.py::_plan)
+// takes the smallest tile that gives the fewest waves over the card's 15
+// clusters (one 512-thread CTA an SM).  At 224², B=128, on an H100:
+//
+//   site   f32: n, tiles, smem a CTA, weights from L2   bf16
+//   mmtm2  2, 64 (5 waves), 209 KiB, 16 MiB            3, 43 (3 waves), 171 KiB, 5 MiB
+//   mmtm3  3, 43 (3 waves), 173 KiB, 43 MiB            5, 26 (2 waves), 166 KiB, 13 MiB
+//   mmtm4  5, 26 (2 waves), 198 KiB, 104 MiB           5, 26 (2 waves), 136 KiB, 52 MiB
+//
+// A sample whose two maps do not fit a cluster (S=3136, C=128 in f32: 392
+// rows of 512 B a CTA a map) streams instead: the CTA reduces its rows from
+// global memory, computes the gates, and reads the rows again to scale them.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "mmtm_cluster.cuh"
 
 namespace {
 
-template <typename T> __device__ __forceinline__ float to_f32(T x);
-template <> __device__ __forceinline__ float to_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) { return __float2bfloat16_rn(x); }
-
-// The casts of the TPU kernel (mmtm_pallas.py:57,62,66,70): round an f32 value
-// to T's precision and carry on in f32.
-template <typename T> __device__ __forceinline__ float round_to(float x) { return to_f32<T>(from_f32<T>(x)); }
-
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-
-// ---- pass 1: squeeze -------------------------------------------------------
-// grid (ceil(C / 32), B, 2); lane = channel within the tile, warp = row phase.
-template <typename T>
-__global__ void __launch_bounds__(kThreads) squeeze_kernel(
-    const T* __restrict__ f0, const T* __restrict__ f1, float* __restrict__ sq0, float* __restrict__ sq1,
-    int S, int C) {
-  const T* f = blockIdx.z == 0 ? f0 : f1;
-  float* sq = blockIdx.z == 0 ? sq0 : sq1;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int b = blockIdx.y;
-  const int c = blockIdx.x * 32 + lane;
-  float acc = 0.f;
-  if (c < C) {
-    const T* base = f + (size_t)b * S * C + c;
-#pragma unroll 4
-    for (int s = warp; s < S; s += kWarps) acc += to_f32<T>(base[(size_t)s * C]);
-  }
-  __shared__ float part[kWarps][32];
-  part[warp][lane] = acc;
-  __syncthreads();
-  if (warp == 0 && c < C) {
-    float total = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) total += part[w][lane];
-    sq[(size_t)b * C + c] = total / (float)S;
-  }
-}
-
-// ---- passes 2 and 3: row products ------------------------------------------
-// out[b, n] = act(sum_k round_T(x[b, k]) * W[n, k] + bias[n]), W in (N, K)
-// row-major.  x is the concatenation of xa (B, Ka) and xb (B, K - Ka), so the
-// excitation reads [sq0, sq1] without a joint copy.  grid (ceil(N / kOutTile),
-// ceil(B / kSampleTile), z); z selects (W, bias, out) = (w[z], bias[z], out[z]).
-constexpr int kSampleTile = 8;
-constexpr int kOutTile = 32;
-enum Act { kRelu = 0, kSigmoid = 1 };
+using namespace mmtm;
 
 template <typename T>
-struct RowProductArgs {
-  const float* xa;
-  const float* xb;
-  int Ka, K, N, B;
-  const T* w[2];
-  const T* bias[2];
-  float* out[2];
+struct FwdArgs {
+  const T *f0, *f1, *wsq, *bsq, *w0, *b0, *w1, *b1;
+  T *out0, *out1;
+  float *sq0, *sq1, *g0, *g1;
+  int B, S, C, D, n, nmaps;
 };
 
-template <typename T, int ACT>
-__global__ void __launch_bounds__(kThreads) row_product_kernel(RowProductArgs<T> a) {
-  extern __shared__ float xs[];  // [kSampleTile][K], rounded to T
-  const T* __restrict__ W = a.w[blockIdx.z];
-  const T* __restrict__ bias = a.bias[blockIdx.z];
-  float* __restrict__ out = a.out[blockIdx.z];
-  const int K = a.K, Ka = a.Ka, Kb = a.K - a.Ka;
-  const int b0 = blockIdx.y * kSampleTile;
-  const int nb = min(kSampleTile, a.B - b0);
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1) gating_fwd_kernel(FwdArgs<T> a) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int K = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int C = a.C, C2 = 2 * a.C, D = a.D, Dp = (a.D + 3) / 4 * 4;
+  const int tiles = (a.B + a.n - 1) / a.n, first = (int)(blockIdx.x / K), step = (int)(gridDim.x / K);
+  const int rows_max = (a.S + K - 1) / K;
+  int s0, ns;
+  split(a.S, K, rank, s0, ns);
 
-  for (int i = threadIdx.x; i < kSampleTile * K; i += kThreads) {
-    const int s = i / K, k = i - s * K;
-    float v = 0.f;
-    if (s < nb) {
-      const int b = b0 + s;
-      v = k < Ka ? a.xa[(size_t)b * Ka + k] : a.xb[(size_t)b * Kb + (k - Ka)];
-      v = round_to<T>(v);
-    }
-    xs[i] = v;
-  }
-  __syncthreads();
+  extern __shared__ __align__(128) unsigned char smem[];
+  const Layout L(a.n, a.nmaps, rows_max, C, D, sizeof(T), false);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
+  float* part = reinterpret_cast<float*>(smem + L.part);  // partial sums, later the gates
+  float* sq = reinterpret_cast<float*>(smem + L.sq);
+  float* e = reinterpret_cast<float*>(smem + L.e);
+  float* tmp = reinterpret_cast<float*>(smem + L.tmp);
+  T* maps = reinterpret_cast<T*>(smem + L.maps);
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int j = warp; j < kOutTile; j += kWarps) {
-    const int n = blockIdx.x * kOutTile + j;
-    if (n >= a.N) break;
-    const T* __restrict__ wrow = W + (size_t)n * K;
-    float acc[kSampleTile];
-#pragma unroll
-    for (int s = 0; s < kSampleTile; ++s) acc[s] = 0.f;
-    for (int k = lane; k < K; k += 32) {
-      const float wv = to_f32<T>(wrow[k]);
-#pragma unroll
-      for (int s = 0; s < kSampleTile; ++s) acc[s] = fmaf(wv, xs[s * K + k], acc[s]);
+  const T* src[2] = {a.f0, a.f1};
+  auto issue = [&](int tile) {  // the tile's maps into shared memory
+    if (a.nmaps && threadIdx.x == 0 && tile < tiles)
+      issue_tile<T>(src, a.nmaps, maps, bar, a.n, min(a.n, a.B - tile * a.n), tile * a.n, a.S, s0, ns, rows_max, C);
+  };
+  init_barrier(bar);
+  issue(first);
+  for (int tile = first, it = 0; tile < tiles; tile += step, ++it) {
+    const int b0 = tile * a.n, nb = min(a.n, a.B - b0);
+    // @phase 0 (the `// @phase` marks are where kernel_phases.py stamps a tile's phases)
+    if (a.nmaps) wait_barrier(bar, (uint32_t)(it & 1));
+    // @phase 1
+    auto rows_of = [&](int m, int j) -> const T* {
+      return a.nmaps ? maps + ((size_t)(m * a.n + j) * rows_max) * C : src[m] + ((size_t)(b0 + j) * a.S + s0) * C;
+    };
+
+    // 2. partial sums of this CTA's rows: set q = 2 j + m is modality m of sample j
+    auto set_rows = [&](int q) { return rows_of(q % 2, q / 2); };
+    reduce_sets<T, false>(set_rows, set_rows, 2 * nb, ns, C, tmp, part);
+    cluster.sync();
+    // @phase 2
+
+    // 3. sq = (sum of the K partials in rank order) / S, in every CTA
+    const float fs = (float)a.S;
+    for (int i = threadIdx.x; i < nb * C2 / 4; i += kThreads) {
+      const float4 t = cluster_sum4(cluster, part, i);
+      reinterpret_cast<float4*>(sq)[i] = make_float4(t.x / fs, t.y / fs, t.z / fs, t.w / fs);
     }
-#pragma unroll
-    for (int s = 0; s < kSampleTile; ++s) {
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) acc[s] += __shfl_xor_sync(0xffffffffu, acc[s], off);
-    }
-    if (lane == 0) {
-      const float bn = to_f32<T>(bias[n]);
-#pragma unroll
-      for (int s = 0; s < kSampleTile; ++s) {
-        if (s < nb) {
-          const float z = acc[s] + bn;
-          out[(size_t)(b0 + s) * a.N + n] = ACT == kRelu ? fmaxf(z, 0.f) : 1.f / (1.f + expf(-z));
-        }
+    __syncthreads();
+    if (rank == 0) {
+      for (int i = threadIdx.x; i < nb * C2; i += kThreads) {
+        const int j = i / C2, c = i % C2;
+        (c < C ? a.sq0 : a.sq1)[(size_t)(b0 + j) * C + c % C] = sq[i];
       }
     }
-  }
-}
 
-// ---- pass 4: scale -----------------------------------------------------------
-// One 16-byte vector of f per thread; C is a multiple of the vector width, so a
-// vector never straddles two samples.  grid (blocks, 1, 2).
-template <typename T>
-__global__ void __launch_bounds__(kThreads) scale_kernel(
-    const T* __restrict__ f0, const T* __restrict__ f1, const float* __restrict__ g0,
-    const float* __restrict__ g1, T* __restrict__ out0, T* __restrict__ out1, int S, int C, size_t nvec) {
-  constexpr int kVec = 16 / sizeof(T);
-  const uint4* f = reinterpret_cast<const uint4*>(blockIdx.z == 0 ? f0 : f1);
-  uint4* out = reinterpret_cast<uint4*>(blockIdx.z == 0 ? out0 : out1);
-  const float* g = blockIdx.z == 0 ? g0 : g1;
-  const size_t per_sample = (size_t)S * C;
-  for (size_t v = (size_t)blockIdx.x * kThreads + threadIdx.x; v < nvec; v += (size_t)gridDim.x * kThreads) {
-    const size_t e = v * kVec;
-    const size_t b = e / per_sample;
-    const int c = (int)(e % C);
-    const float* gb = g + b * C + c;
-    uint4 raw = f[v];
-    T* vals = reinterpret_cast<T*>(&raw);
+    // @phase 3
+    // 4a. this CTA's share of e, pushed to every CTA over DSMEM
+    int lo, size;
+    split(D, K, rank, lo, size);
+    row_product<T, kRelu, true, kMaxTile>(sq, C2, C2, a.wsq, a.bsq, lo, lo + size, nb, e, Dp);
+    // @phase 4
+    push_slice(cluster, e, lo, size, Dp, nb);
+    cluster.sync();  // every CTA holds all of e and is done reading the partials
+    // @phase 5
+
+    // 4b. this CTA's share of the 2C gate outputs (into part), pushed to every CTA
+    split(C2, K, rank, lo, size);
+    for (int m = 0; m < 2; ++m) {
+      const int from = max(lo, m * C), to = min(lo + size, (m + 1) * C);
+      if (from < to)
+        row_product<T, kSigmoid, true, kMaxTile>(e, Dp, D, m ? a.w1 : a.w0, m ? a.b1 : a.b0, from - m * C, to - m * C, nb,
+                                                 part + m * C, C2);
+    }
+    // @phase 6
+    push_slice(cluster, part, lo, size, C2, nb);
+    cluster.sync();  // every CTA holds every gate
+    // @phase 7
+    if (rank == 0) {
+      for (int i = threadIdx.x; i < nb * C2; i += kThreads) {
+        const int j = i / C2, c = i % C2;
+        (c < C ? a.g0 : a.g1)[(size_t)(b0 + j) * C + c % C] = part[i];
+      }
+    }
+
+    // 5. out = f * round_T(g) over this CTA's rows of every (sample, modality)
+    // q = 2 j + m, 16-byte loads and stores
+    constexpr int V = 16 / sizeof(T);
+    const int CV = C / V, per = ns * CV;
+    T* dst[2] = {a.out0, a.out1};
+    for (int i = threadIdx.x; i < 2 * nb * per; i += kThreads) {
+      const int q = i / per, v = i - q * per, j = q / 2, m = q % 2, c = (v % CV) * V;
+      uint4 raw = reinterpret_cast<const uint4*>(rows_of(m, j))[v];
+      const float* g = part + j * C2 + m * C;
+      T* vals = reinterpret_cast<T*>(&raw);
 #pragma unroll
-    for (int j = 0; j < kVec; ++j) vals[j] = from_f32<T>(to_f32<T>(vals[j]) * round_to<T>(gb[j]));
-    out[v] = raw;
+      for (int u = 0; u < V; ++u) vals[u] = from_f32<T>(to_f32<T>(vals[u]) * round_to<T>(g[c + u]));
+      __stcs(reinterpret_cast<uint4*>(dst[m] + ((size_t)(b0 + j) * a.S + s0) * C) + v, raw);
+    }
+    __syncthreads();  // the maps and the rows are read: free for the next tile
+    // @phase 8
+    issue(tile + step);
   }
 }
 
 template <typename T>
-cudaError_t launch(const void* f0, const void* f1, const void* wsq, const void* bsq, const void* w0,
-                   const void* b0, const void* w1, const void* b1, void* out0, void* out1, float* sq0,
-                   float* sq1, float* e, float* g0, float* g1, int B, int S, int C, int D,
-                   cudaStream_t stream) {
-  const T* tf0 = static_cast<const T*>(f0);
-  const T* tf1 = static_cast<const T*>(f1);
-
-  squeeze_kernel<T><<<dim3((C + 31) / 32, B, 2), kThreads, 0, stream>>>(tf0, tf1, sq0, sq1, S, C);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
-  const int sample_tiles = (B + kSampleTile - 1) / kSampleTile;
-  RowProductArgs<T> ex{sq0, sq1, C, 2 * C, D, B,
-                       {static_cast<const T*>(wsq), nullptr},
-                       {static_cast<const T*>(bsq), nullptr},
-                       {e, nullptr}};
-  const size_t ex_smem = sizeof(float) * kSampleTile * 2 * C;
-  row_product_kernel<T, kRelu><<<dim3((D + kOutTile - 1) / kOutTile, sample_tiles, 1), kThreads, ex_smem, stream>>>(ex);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
-  RowProductArgs<T> gt{e, e, D, D, C, B,
-                       {static_cast<const T*>(w0), static_cast<const T*>(w1)},
-                       {static_cast<const T*>(b0), static_cast<const T*>(b1)},
-                       {g0, g1}};
-  const size_t gt_smem = sizeof(float) * kSampleTile * D;
-  row_product_kernel<T, kSigmoid><<<dim3((C + kOutTile - 1) / kOutTile, sample_tiles, 2), kThreads, gt_smem, stream>>>(gt);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
-  const size_t nvec = (size_t)B * S * C / (16 / sizeof(T));
-  const size_t blocks = (nvec + kThreads - 1) / kThreads;
-  const unsigned grid_x = (unsigned)(blocks < 65535 ? blocks : 65535);
-  scale_kernel<T><<<dim3(grid_x, 1, 2), kThreads, 0, stream>>>(tf0, tf1, g0, g1, static_cast<T*>(out0),
-                                                              static_cast<T*>(out1), S, C, nvec);
-  return cudaGetLastError();
+cudaError_t launch(const FwdArgs<T>& args, int K, int smem, int clusters, cudaStream_t stream) {
+  const int rows_max = (args.S + K - 1) / K;
+  if ((size_t)smem != Layout(args.n, args.nmaps, rows_max, args.C, args.D, sizeof(T), false).total)
+    return cudaErrorInvalidValue;
+  return launch_clusters(gating_fwd_kernel<T>, args, clusters, K, smem, stream);
 }
 
 }  // namespace
 
 // Plain C entry point, loaded with ctypes.  dtype: 0 = float32, 1 = bfloat16.
 // The wrapper (ops/mmtm_gating.py) checks shapes, dtypes, contiguity and
-// alignment and allocates every output and the (B, D) f32 scratch `e`.
-// Returns cudaGetLastError() after the launches (0 = success).
+// alignment, allocates every output, and passes its plan: K CTAs a cluster,
+// n samples a tile, nmaps resident maps (2, or 0 to stream), the dynamic
+// shared memory per CTA and the persistent clusters to launch.  Returns the
+// launch's CUDA error (0 = success).
 extern "C" int mmtm_gating_forward(const void* f0, const void* f1, const void* wsq, const void* bsq,
                                    const void* w0, const void* b0, const void* w1, const void* b1,
-                                   void* out0, void* out1, void* sq0, void* sq1, void* e, void* g0,
-                                   void* g1, int B, int S, int C, int D, int dtype, void* stream) {
+                                   void* out0, void* out1, void* sq0, void* sq1, void* g0, void* g1, int B, int S,
+                                   int C, int D, int dtype, int K, int n, int nmaps, int smem,
+                                   int clusters, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* fsq0 = static_cast<float*>(sq0);
-  float* fsq1 = static_cast<float*>(sq1);
-  float* fe = static_cast<float*>(e);
-  float* fg0 = static_cast<float*>(g0);
-  float* fg1 = static_cast<float*>(g1);
+  if (n < 1 || n > kMaxTile || K < 1 || K > 8 || clusters < 1)
+    return (int)cudaErrorInvalidValue;
+  auto rows = [](void* p) { return static_cast<float*>(p); };
+  switch (dtype) {
+    case 0: {
+      using T = float;
+      FwdArgs<T> a{(const T*)f0, (const T*)f1, (const T*)wsq, (const T*)bsq, (const T*)w0, (const T*)b0,
+                   (const T*)w1, (const T*)b1, (T*)out0, (T*)out1, rows(sq0), rows(sq1), rows(g0), rows(g1),
+                   B, S, C, D, n, nmaps};
+      return (int)launch(a, K, smem, clusters, st);
+    }
+    case 1: {
+      using T = __nv_bfloat16;
+      FwdArgs<T> a{(const T*)f0, (const T*)f1, (const T*)wsq, (const T*)bsq, (const T*)w0, (const T*)b0,
+                   (const T*)w1, (const T*)b1, (T*)out0, (T*)out1, rows(sq0), rows(sq1), rows(g0), rows(g1),
+                   B, S, C, D, n, nmaps};
+      return (int)launch(a, K, smem, clusters, st);
+    }
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Clusters of the forward kernel that fit on the card at once for this plan
+// (cudaOccupancyMaxActiveClusters), written to *count.
+extern "C" int mmtm_gating_forward_clusters(int dtype, int K, int smem, int* count) {
   switch (dtype) {
     case 0:
-      return (int)launch<float>(f0, f1, wsq, bsq, w0, b0, w1, b1, out0, out1, fsq0, fsq1, fe, fg0, fg1, B, S, C, D, st);
+      return (int)max_active_clusters(gating_fwd_kernel<float>, K, smem, count);
     case 1:
-      return (int)launch<__nv_bfloat16>(f0, f1, wsq, bsq, w0, b0, w1, b1, out0, out1, fsq0, fsq1, fe, fg0, fg1, B,
-                                        S, C, D, st);
+      return (int)max_active_clusters(gating_fwd_kernel<__nv_bfloat16>, K, smem, count);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -3,8 +3,8 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into a shared library with a
 plain C interface (no PyTorch headers, so a build takes seconds) and loaded
 with ``ctypes``.  Libraries go to ``_build/`` inside the package, named by a
-hash of the source and the flags, so an edited source is rebuilt and a
-stale library is never loaded.  Nothing is built when a module is imported:
+hash of the source, every shared header ``csrc/*.cuh`` and the flags, so an
+edited source or header is rebuilt and a stale library is never loaded.  Nothing is built when a module is imported:
 the first call that needs a kernel builds it.
 """
 
@@ -48,9 +48,14 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    source = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """``_build/lib<name>-<digest>.so``: the digest covers ``<name>.cu``,
+    every ``csrc/*.cuh`` (sorted by name; any source may include them) and
+    the flags."""
+    h = hashlib.sha256()
+    for path in [CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh"))]:
+        h.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Sequence[str]) -> Dict[str, Path]:

@@ -11,8 +11,8 @@ classes, random seeded weights) and prints one JSON line with:
 * ``h2d_ms`` and ``forward_ms``: CUDA events around the copy and around
   preprocess + forward;
 * ``device_busy_share``: summed kernel time over the profiled wall time;
-* ``gating_kernel_ms_per_step``: device time of the fused gating kernel's
-  passes (``csrc/mmtm_gating.cu``);
+* ``gating_kernel_ms_per_step``: device time of the fused gating kernel
+  (``csrc/mmtm_gating.cu``);
 * ``kernels``: device time per step of the top kernels by name, from
   ``torch.profiler``.
 
@@ -36,8 +36,8 @@ from .data.transforms import preprocess
 from .engine.framework import Trainer
 from .models import MMTMMVCNN
 
-# the passes of csrc/mmtm_gating.cu
-GATING_KERNELS = r"\b(squeeze_kernel|row_product_kernel|scale_kernel)\b"
+# the kernel of csrc/mmtm_gating.cu
+GATING_KERNELS = r"\bgating_fwd_kernel\b"
 
 
 def _events_ms(fn):

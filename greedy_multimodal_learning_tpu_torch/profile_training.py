@@ -11,7 +11,7 @@ weights) and prints one JSON line with:
   of ``--steps``, and ``samples_per_s`` from it;
 * ``device_busy_share``: summed kernel time over the profiled wall time;
 * ``gating_forward_ms_per_step`` and ``gating_backward_ms_per_step``:
-  device time of the passes of ``csrc/mmtm_gating.cu`` and
+  device time of the kernels of ``csrc/mmtm_gating.cu`` and
   ``csrc/mmtm_gating_bwd.cu``;
 * ``elementwise_reduce_ms_per_step``: device time of PyTorch's generic
   elementwise and reduction kernels (mostly the masked train BatchNorm,
@@ -38,8 +38,8 @@ from .engine import Trainer, make_optimizer
 from .models import MMTMMVCNN
 from .profile_serving import device_rows, smi_line
 
-GATING_FORWARD = r"\b(squeeze_kernel|row_product_kernel|scale_kernel)\b"
-GATING_BACKWARD = r"\b(dgate_kernel|pre_kernel|col_product_kernel|df_kernel|outer_kernel)\b"
+GATING_FORWARD = r"\bgating_fwd_kernel\b"
+GATING_BACKWARD = r"\b(gating_bwd_map_kernel|weight_grad_kernel)\b"
 ELEMENTWISE_REDUCE = r"elementwise_kernel|reduce_kernel"
 
 

@@ -1,7 +1,8 @@
 """The port stands alone: importing every module of
 ``greedy_multimodal_learning_tpu_torch`` and ``chip_smoke`` loads no jax,
-flax, optax nor anything of the JAX package, and no source of the port has
-an import of them."""
+flax, optax nor anything of the JAX package, and no source of the port or
+of its tools at the repository's root (``chip_smoke.py``, ``kernel_ab.py``,
+``kernel_phases.py``) has an import of them."""
 
 import os
 import re
@@ -13,6 +14,7 @@ import pytest
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "greedy_multimodal_learning_tpu_torch"
+TOOLS = ("chip_smoke.py", "kernel_ab.py", "kernel_phases.py")
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "greedy_multimodal_learning_tpu")
 
 _PROBE = """
@@ -48,7 +50,7 @@ def test_importing_the_port_loads_no_jax():
 
 @pytest.mark.parametrize(
     "path",
-    sorted(str(p.relative_to(REPO)) for p in [*PORT.rglob("*.py"), REPO / "chip_smoke.py"]),
+    sorted(str(p.relative_to(REPO)) for p in [*PORT.rglob("*.py"), *(REPO / t for t in TOOLS)]),
 )
 def test_source_has_no_jax_import(path):
     text = (REPO / path).read_text()
