@@ -43,11 +43,32 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    update's L2; the eager step run twice is printed beside it); and
    guided-step samples/s with a device-resident batch, kernel path and
    eager path, float32 and bfloat16;
-7. a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line, and last
+7. the eval path at full width in phase 5's float32 run (train -> record ->
+   flow-off), through ``eval_``: (a) the recording pass
+   (``configs/recording.gin`` + ``MMTM_mitigate.use_pallas=True``, B=128) over
+   the whole train file (``valid_size=0``: phase 5's 256 train and 128
+   validation samples), float32 and bfloat16, the forward kernel launched 3 x
+   batches, the pickle's nesting and indices checked, and the float32 maps
+   within the kernel's ``sq`` tolerance of the same pass with
+   ``use_pallas=False``; (b) the same recording with
+   ``evalution_loop.ondevice_rescale=True``, whose means must be within 1e-5
+   relative of ``get_rescale_weights`` over the pickle; (c) the flow-off pass
+   (``configs/eval.gin`` + ``use_pallas=True``) over the 128 test samples,
+   which launches no kernel, with finite metrics, and a small flow-off input
+   on the card against the port's CPU forward; samples/s of each pass;
+8. resume on the card, float32 with the kernels and cuDNN's deterministic
+   algorithms: ``training_loop.n_epochs=3`` straight through (twice: the
+   run-to-run floor) against ``n_epochs=2`` followed by ``resume=True,
+   n_epochs=3``; the same history epochs, the restored step and controller
+   equal to the sidecar's, the final parameters and buffers per tensor
+   within ``STEP_TOL`` of the resumed epoch's update (L2), the backward
+   kernel launched 3 x the resumed run's train steps; two straight runs
+   with cuDNN's default (non-deterministic) algorithms are printed beside;
+9. a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
 Scratch files go to ``smoke_out/`` in the checkout (git-ignored); the
-synthetic splits, checkpoints and training runs are removed at exit.
+synthetic splits, checkpoints, training and eval runs are removed at exit.
 """
 
 from __future__ import annotations
@@ -58,6 +79,7 @@ import csv
 import io
 import json
 import os
+import pickle
 import re
 import shutil
 import subprocess
@@ -68,10 +90,11 @@ import numpy as np
 import torch
 
 from greedy_multimodal_learning_tpu_torch import config as cfg
+from greedy_multimodal_learning_tpu_torch.analysis import get_rescale_weights
 from greedy_multimodal_learning_tpu_torch.bootstrap import init_model
 from greedy_multimodal_learning_tpu_torch.data.synthetic import make_synthetic_modelnet
 from greedy_multimodal_learning_tpu_torch.engine import Trainer, make_optimizer
-from greedy_multimodal_learning_tpu_torch.entries import train
+from greedy_multimodal_learning_tpu_torch.entries import eval_, train
 from greedy_multimodal_learning_tpu_torch.models import MMTMMVCNN
 from greedy_multimodal_learning_tpu_torch.ops import build as kernel_build
 from greedy_multimodal_learning_tpu_torch.ops.mmtm_gating import (
@@ -142,6 +165,8 @@ STEP_TOL = 1e-2
 N_TRAIN, N_VAL, N_TRAIN_TEST = 256, 128, 128
 SLEEP_CYCLES = 2_000_000  # about 1 ms of device time: longer than any wrapper's host work
 CPU_LOGIT_TOL = (1e-4, 1e-4)  # (rtol, atol): cuDNN without TF32 vs the CPU's f32 convolutions
+RESCALE_TOL = (1e-5, 1e-6)  # (rtol, atol): on-device means vs the host's, f32 sums in another order
+FUSION_CHANNELS = (128, 256, 512)  # mmtm2..mmtm4
 
 
 def log(msg):
@@ -542,10 +567,10 @@ def backward_kernel_phase():
 # ---- phase 5 helpers -------------------------------------------------------------
 
 
-def run_train(tag, configs, bindings, save_path):
-    """One run of the ``train`` entry through the gin surface, the kernels'
-    counts set to 0 just before it and read just after; checks the counts,
-    the curated steps, the losses and the artifacts."""
+def counted(entry, configs, bindings, save_path):
+    """One run of an entry (``train`` or ``eval_``) through the gin surface,
+    the kernels' counts set to 0 just before it and read just after; returns
+    (what it returned, forward launches, backward launches, seconds)."""
     cfg.clear_config()
     cfg.parse_config_files_and_bindings([os.path.join(REPO, c) for c in configs], "\n".join(bindings))
     buf = io.StringIO()
@@ -553,10 +578,17 @@ def run_train(tag, configs, bindings, save_path):
     mmtm_gating_bwd.launches = 0
     t0 = time.time()
     with contextlib.redirect_stdout(buf):
-        trainer = train(save_path)
+        out = entry(save_path)
     torch.cuda.synchronize()
-    fwd, bwd = mmtm_gating.launches, mmtm_gating_bwd.launches
     wall = time.time() - t0
+    cfg.clear_config()
+    return out, mmtm_gating.launches, mmtm_gating_bwd.launches, wall
+
+
+def run_train(tag, configs, bindings, save_path):
+    """One counted run of the ``train`` entry; checks the counts, the curated
+    steps, the losses and the artifacts."""
+    trainer, fwd, bwd, wall = counted(train, configs, bindings, save_path)
     with open(os.path.join(save_path, "history.csv")) as f:
         rows = list(csv.DictReader(f))
     eval_batches = len(rows) * (-(-N_VAL // BATCH) + -(-N_TRAIN_TEST // BATCH))
@@ -582,19 +614,22 @@ def run_train(tag, configs, bindings, save_path):
             "train_samples_per_s": rates, "wall_s": wall}
 
 
+TRAIN_BINDINGS = [
+    "MMTM_mitigate.use_pallas=True",
+    f"train.batch_size={BATCH}",
+    f"get_mvdcndata.root_dir='{TRAIN_DATA}'",
+    "get_mvdcndata.specific_views=[0, 1]",
+    f"get_mvdcndata.valid_size={(N_VAL + 0.5) / (N_TRAIN + N_VAL)!r}",
+    "training_loop.n_epochs=3",
+]
+
+
 def training_phase():
     t0 = time.time()
     make_synthetic_modelnet(TRAIN_DATA, n_train=N_TRAIN + N_VAL, n_test=N_TRAIN_TEST, num_views=2, image_size=224,
                             nclasses=40, seed=1)
     log(f"[train] synthetic split in {time.time() - t0:.1f}s")
-    base = [
-        "MMTM_mitigate.use_pallas=True",
-        f"train.batch_size={BATCH}",
-        f"get_mvdcndata.root_dir='{TRAIN_DATA}'",
-        "get_mvdcndata.specific_views=[0, 1]",
-        f"get_mvdcndata.valid_size={(N_VAL + 0.5) / (N_TRAIN + N_VAL)!r}",
-        "training_loop.n_epochs=3",
-    ]
+    base = TRAIN_BINDINGS
     return {
         tag: run_train(tag, configs, base, os.path.join(TRAIN_RUNS, tag))
         for tag, configs in (
@@ -715,11 +750,240 @@ def throughput_phase():
             log(f"[step] guided step samples/s, {tag}, B={BATCH}, 224²: {vals}")
     return rates
 
+# ---- phase 7 helpers -------------------------------------------------------------
+
+
+def eval_rate(tag, save_path, rows, fwd, wall):
+    """Samples/s of the pass from its own clock (the ``time`` column of
+    ``eval_history_batch/history.csv``); checks the metrics are finite."""
+    with open(os.path.join(save_path, "eval_history_batch", "history.csv")) as f:
+        row = list(csv.DictReader(f))[-1]
+    metrics = {k: float(row[k]) for k in ("test_loss", "test_acc", "test_acc_modal_0", "test_acc_modal_1")}
+    if not np.isfinite(list(metrics.values())).all():
+        raise AssertionError(f"eval {tag}: metrics {metrics}")
+    rate = rows / float(row["time"])
+    log(f"[eval {tag}] {rows} samples, pass {float(row['time']):.3f}s ({rate:.1f} samples/s), entry {wall:.1f}s | "
+        f"forward launches {fwd} | {json.dumps(metrics)}")
+    return {"samples_per_s": rate, "launches": fwd, **metrics}
+
+
+def recorded_maps(tag, save_path, rows):
+    """The recording's squeeze maps, [MMTM][view] (rows, C) in dataset order,
+    after checking the pickle's nesting (batches x 3 MMTMs x 2 views of
+    (real rows, C) float32) and its indices."""
+    with open(os.path.join(save_path, "eval_history_batch", "history.pickle"), "rb") as f:
+        H = pickle.load(f)
+    batches = H["test_squeezedmaps_array_list"][0]
+    want_rows = [min(BATCH, rows - s) for s in range(0, rows, BATCH)]
+    shapes = [[[v.shape for v in m] for m in b] for b in batches]
+    want = [[[(r, c)] * 2 for c in FUSION_CHANNELS] for r in want_rows]
+    if shapes != want or any(v.dtype != np.float32 or not np.isfinite(v).all() for b in batches for m in b for v in m):
+        raise AssertionError(f"recording {tag}: nesting {shapes}, want {want}")
+    indices = np.asarray(H["test_indices"][0])
+    if sorted(indices.tolist()) != list(range(rows)):
+        raise AssertionError(f"recording {tag}: test_indices are not the {rows} train-file samples")
+    order = np.argsort(indices)
+    return [[np.concatenate([b[m][v] for b in batches])[order] for v in range(2)] for m in range(3)]
+
+
+def small_flow_off_agreement(trainer):
+    """The flow-off forward of the eval's model on a small input, on the card
+    (no kernel may launch) and on the CPU (the port's plain path)."""
+    x = torch.from_numpy(np.random.default_rng(4).normal(size=(3, 2, 64, 64, 3)).astype(np.float32))
+    mask = torch.tensor([1.0, 1.0, 0.0])
+    maps = trainer.average_squeezemaps
+    cpu_model = copy.deepcopy(trainer.model).cpu()
+    cpu_maps = [None if slot is None else [v.cpu() for v in slot] for slot in maps]
+    with torch.no_grad():
+        mmtm_gating.launches = 0
+        _, got, _, _ = trainer.model(x.cuda(), valid_mask=mask.cuda(), mmtm_state={}, mmtm_off=True,
+                                     average_squeezemaps=maps)
+        torch.cuda.synchronize()
+        if mmtm_gating.launches:
+            raise AssertionError(f"flow-off forward made {mmtm_gating.launches} kernel launches, expected 0")
+        _, want, _, _ = cpu_model(x, valid_mask=mask, mmtm_state={}, mmtm_off=True, average_squeezemaps=cpu_maps)
+    return max(check_close(f"flow-off gpu vs cpu logits view {i}", g.cpu(), w, *CPU_LOGIT_TOL)
+               for i, (g, w) in enumerate(zip(got, want)))
+
+
+def eval_phase(run_dir):
+    """Phase 7 in phase 5's float32 run: record, reduce on the device, then
+    evaluate with the cross-modal flow cut."""
+    rows = N_TRAIN + N_VAL  # recording.gin: valid_size=0, the whole train file
+    base = [
+        f"get_mvdcndata.root_dir='{TRAIN_DATA}'",
+        "get_mvdcndata.specific_views=[0, 1]",
+        f"eval_.batch_size={BATCH}",
+        f"eval_.pretrained_weights_path='{os.path.join(run_dir, 'model_best_val.pt')}'",
+    ]
+    kernel = base + ["MMTM_mitigate.use_pallas=True"]
+    rec_batches = -(-rows // BATCH)
+    report, maps = {}, {}
+    for tag, configs, bindings, save_path in (
+        ("record_f32", ["configs/recording.gin"], kernel, run_dir),
+        ("record_bf16", ["configs/recording.gin", "configs/tpu_bf16.gin"], kernel,
+         os.path.join(TRAIN_RUNS, "rec_bf16")),
+        ("record_f32_eager", ["configs/recording.gin"], base + ["MMTM_mitigate.use_pallas=False"],
+         os.path.join(TRAIN_RUNS, "rec_eager")),
+    ):
+        trainer, fwd, bwd, wall = counted(eval_, configs, bindings, save_path)
+        del trainer
+        want = 0 if tag.endswith("eager") else 3 * rec_batches
+        if (fwd, bwd) != (want, 0):
+            raise AssertionError(f"{tag}: kernel launches (forward, backward) = {(fwd, bwd)}, want {(want, 0)}")
+        report[tag] = eval_rate(tag, save_path, rows, fwd, wall)
+        maps[tag] = recorded_maps(tag, save_path, rows)
+    sq_rtol, sq_atol = TOL[torch.float32]["sq"]
+    report["record_kernel_vs_eager_max_abs_err"] = max(
+        check_close(f"recorded squeeze mmtm{m + 2} view {v}: kernel vs eager", torch.from_numpy(k),
+                    torch.from_numpy(e), sq_rtol, sq_atol)
+        for m, (km, em) in enumerate(zip(maps["record_f32"], maps["record_f32_eager"]))
+        for v, (k, e) in enumerate(zip(km, em))
+    )
+    log("[eval] recorded squeeze maps f32, kernel vs eager: max |diff| "
+        f"{report['record_kernel_vs_eager_max_abs_err']:.3e}")
+
+    od = os.path.join(TRAIN_RUNS, "rec_ondevice")
+    trainer, fwd, _, wall = counted(eval_, ["configs/recording.gin"], kernel + [
+        "evalution_loop.ondevice_rescale=True", f"evalution_loop.ondevice_rescale_training_path='{run_dir}'",
+    ], od)
+    del trainer
+    if fwd != 3 * rec_batches:
+        raise AssertionError(f"record_ondevice: {fwd} forward launches, want {3 * rec_batches}")
+    report["record_ondevice"] = eval_rate("record_ondevice", od, rows, fwd, wall)
+    with open(os.path.join(od, "eval_history_batch", "history.pickle"), "rb") as f:
+        if "test_squeezedmaps_array_list" in pickle.load(f):
+            raise AssertionError("record_ondevice: the per-sample squeeze maps were stored")
+    fast = get_rescale_weights(os.path.join(od, "eval_history_batch"), run_dir)
+    host = get_rescale_weights(os.path.join(run_dir, "eval_history_batch"), run_dir)
+    report["ondevice_rescale_max_abs_err"] = max(
+        check_close(f"rescale mean position {p} view {v}: device vs host", torch.from_numpy(f),
+                    torch.from_numpy(h), *RESCALE_TOL)
+        for p in (1, 2, 3) for v, (f, h) in enumerate(zip(fast[p], host[p]))
+    )
+    log(f"[eval] on-device rescale means vs get_rescale_weights over the pickle: max |diff| "
+        f"{report['ondevice_rescale_max_abs_err']:.3e}")
+
+    off = os.path.join(TRAIN_RUNS, "flow_off")
+    trainer, fwd, bwd, wall = counted(eval_, ["configs/eval.gin"], kernel + [
+        f"MMTM_MVCNN.mmtm_rescale_eval_file_path='{os.path.join(run_dir, 'eval_history_batch')}'",
+        f"MMTM_MVCNN.mmtm_rescale_training_file_path='{run_dir}'",
+    ], off)
+    if (fwd, bwd) != (0, 0):
+        raise AssertionError(f"flow_off: kernel launches (forward, backward) = {(fwd, bwd)}, want (0, 0)")
+    report["flow_off"] = eval_rate("flow_off", off, N_TRAIN_TEST, fwd, wall)
+    report["flow_off_cpu_logit_err"] = small_flow_off_agreement(trainer)
+    log(f"[eval] flow-off forward, card vs CPU at 64², B=3: max |logit diff| {report['flow_off_cpu_logit_err']:.3e}")
+    del trainer
+    torch.cuda.empty_cache()
+    log(f"[eval] samples/s on {smi_line()}: " + json.dumps(
+        {k: v["samples_per_s"] for k, v in report.items() if isinstance(v, dict)}))
+    return report
+
+
+# ---- phase 8 helpers -------------------------------------------------------------
+
+
+def checkpoint_state(path):
+    """The float entries of a checkpoint and its sidecar's MMTM buffers."""
+    state = dict(torch.load(path, map_location="cpu", weights_only=True)["model"])
+    state.update(torch.load(f"{path}.torch.pt", map_location="cpu", weights_only=True)["mmtm"])
+    return {k: v.float() for k, v in state.items() if v.is_floating_point()}
+
+
+def float_state(model):
+    return {k: v.detach().float().cpu() for k, v in model.state_dict().items() if v.is_floating_point()}
+
+
+def l2_over_update(got, want, start):
+    """Per floating tensor, ||got - want||_2 over ||want - start||_2 (the
+    update of the epoch after ``start``): {name: (ratio, diff, update)}."""
+    out = {}
+    for key, w in want.items():
+        if not torch.isfinite(got[key]).all():
+            raise AssertionError(f"{key}: non-finite values")
+        update, diff = float((w - start[key]).norm()), float((got[key] - w).norm())
+        out[key] = (diff / max(update, 1e-30), diff, update)
+    return out
+
+
+def resume_phase():
+    """Phase 8: a one-epoch run and its resume against the straight run,
+    with cuDNN's deterministic algorithms.  Its default weight gradients
+    are not deterministic; two straight runs with them are measured first,
+    to show how far apart that alone puts two runs."""
+    def epochs(save):
+        with open(os.path.join(save, "history.csv")) as f:
+            return [r["epoch"] for r in csv.DictReader(f)]
+
+    guided = ["configs/training_guided.gin"]
+    dirs = {tag: os.path.join(TRAIN_RUNS, f"resume_{tag}")
+            for tag in ("default_a", "default_b", "straight", "again", "resumed")}
+    runs = {tag: counted(train, guided, TRAIN_BINDINGS, dirs[tag])[0] for tag in ("default_a", "default_b")}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    restored = {}
+    original = Trainer.restore
+
+    def spy(self, filepath):
+        original(self, filepath)
+        restored.update(step=self.step, ctrl={k: v.cpu().clone() for k, v in self.ctrl.as_dict().items()})
+
+    try:
+        for tag in ("straight", "again"):
+            runs[tag] = counted(train, guided, TRAIN_BINDINGS, dirs[tag])[0]
+        counted(train, guided, TRAIN_BINDINGS[:-1] + ["training_loop.n_epochs=2"], dirs["resumed"])
+        last = os.path.join(dirs["resumed"], "model_last_epoch.pt")
+        saved = torch.load(f"{last}.torch.pt", map_location="cpu", weights_only=True)
+        start = checkpoint_state(last)
+        Trainer.restore = spy
+        runs["resumed"], fwd, bwd, wall = counted(train, guided, TRAIN_BINDINGS + ["training_loop.resume=True"],
+                                                  dirs["resumed"])
+    finally:
+        Trainer.restore = original
+        torch.backends.cudnn.deterministic = deterministic
+    if restored.get("step") != saved["step"] or any(
+            not torch.equal(restored["ctrl"][k], v) for k, v in saved["controller"].items()):
+        raise AssertionError(f"resume restored step {restored.get('step')} and controller {restored.get('ctrl')}, "
+                             f"the sidecar holds {saved['step']} and {saved['controller']}")
+    if not epochs(dirs["resumed"]) == epochs(dirs["straight"]) == ["1", "2"]:
+        raise AssertionError(f"history epochs: resumed {epochs(dirs['resumed'])}, straight {epochs(dirs['straight'])}")
+    steps = runs["resumed"].step - restored["step"]
+    eval_batches = -(-N_VAL // BATCH) + -(-N_TRAIN_TEST // BATCH)
+    if steps != N_TRAIN // BATCH or (fwd, bwd) != (3 * (steps + eval_batches), 3 * steps):
+        raise AssertionError(f"resumed run: {steps} steps, launches (forward, backward) = {(fwd, bwd)}, "
+                             f"want {(3 * (steps + eval_batches), 3 * steps)}")
+    states = {tag: float_state(t.model) for tag, t in runs.items()}
+    ratios = {
+        "resumed": l2_over_update(states["resumed"], states["straight"], start),
+        "again": l2_over_update(states["again"], states["straight"], start),
+        # the epoch-1 state of the deterministic runs stands for the
+        # default runs' own: the denominators are a scale
+        "default_cudnn": l2_over_update(states["default_b"], states["default_a"], start),
+    }
+    worst = {tag: max(r for r, _, _ in v.values()) for tag, v in ratios.items()}
+    median = {tag: float(np.median([r for r, _, _ in v.values()])) for tag, v in ratios.items()}
+    log(f"[resume] restored step {restored['step']}, {steps} steps resumed ({wall:.1f}s), launches {fwd} / {bwd}; "
+        f"||diff||_2 / ||epoch-2 update||_2 over every parameter and buffer, largest (median): deterministic cuDNN, "
+        f"resumed vs straight {worst['resumed']:.3e} ({median['resumed']:.3e}), straight vs straight "
+        f"{worst['again']:.3e} ({median['again']:.3e}); default cuDNN, straight vs straight "
+        f"{worst['default_cudnn']:.3e} ({median['default_cudnn']:.3e})")
+    beyond = [f"{k}: ||diff|| {d:.3e}, update {u:.3e}" for k, (_, d, u) in ratios["resumed"].items()
+              if d > STEP_TOL * u + 1e-7]
+    if beyond:
+        raise AssertionError(f"resumed vs straight beyond {STEP_TOL} x the resumed epoch's update in {len(beyond)} "
+                             f"tensors: " + "; ".join(beyond[:5]))
+    del runs, states
+    torch.cuda.empty_cache()
+    return {"restored_step": restored["step"], "resumed_steps": steps, "fwd_launches": fwd, "bwd_launches": bwd,
+            "l2_diff_over_update": worst, "l2_diff_over_update_median": median}
+
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs an NVIDIA GPU", file=sys.stderr)
         return 1
+    t_start = time.time()
     os.makedirs(WORK, exist_ok=True)
     smi = smi_line()
     log(f"[card] {smi} | torch {torch.__version__} CUDA {torch.version.cuda} | {torch.cuda.get_device_name(0)}")
@@ -745,12 +1009,16 @@ def main() -> int:
     bwd_timing = backward_kernel_phase()
     try:
         training = training_phase()
+        log("[train] " + json.dumps(training))
+        step_err = step_agreement()
+        rates = throughput_phase()
+        evaluation = eval_phase(os.path.join(TRAIN_RUNS, "f32"))
+        log("[eval] " + json.dumps(evaluation))
+        resumed = resume_phase()
+        log("[resume] " + json.dumps(resumed))
     finally:
         shutil.rmtree(TRAIN_DATA, ignore_errors=True)
         shutil.rmtree(TRAIN_RUNS, ignore_errors=True)
-    log("[train] " + json.dumps(training))
-    step_err = step_agreement()
-    rates = throughput_phase()
 
     def bound_by(report):
         return "bytes" if all(s["bound_by"] == "bytes" for s in report["sites"].values()) else "operations"
@@ -772,6 +1040,9 @@ def main() -> int:
         "launches_bf16": training["bf16"]["fwd_launches"],
         "launches_serving": serving["f32"]["launches"],
         "launches_serving_bf16": serving["bf16"]["launches"],
+        # the eval path: the f32 recording pass, and the flow-off pass (no kernel)
+        "launches_eval": evaluation["record_f32"]["launches"],
+        "launches_eval_flow_off": evaluation["flow_off"]["launches"],
         "max_abs_err": f32["max_abs_err"],
         "max_abs_err_bf16": bf16["max_abs_err"],
         # float32, the configuration's dtype: one forward's three fusion sites at B=128
@@ -806,6 +1077,7 @@ def main() -> int:
         "sites": {str(dt)[6:]: t["sites"] for dt, t in bwd_timing.items()},
     }]
     log("[step] " + json.dumps({"l2_diff_over_update": step_err, "samples_per_s": rates}))
+    log(f"[time] {time.time() - t_start:.1f}s in all")
     print(json.dumps({"kernels": kernels}))
     print(smi_line())
     print(json.dumps({

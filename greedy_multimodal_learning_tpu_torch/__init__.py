@@ -6,10 +6,11 @@ package's so each module's counterpart is easy to find.  The JAX package is
 the reference the port's tests hold it against; the port itself imports
 ``torch`` and never ``jax`` nor anything of the JAX package.
 
-Slice 1 (this tree) is the serving path: ``predict_`` → ``Trainer.predict``
-→ the two-tower ResNet-18 + MMTM model, with the fused MMTM gating forward
-as a hand-written CUDA kernel (``ops/mmtm_gating.py``,
-``csrc/mmtm_gating.cu``).
+Ported so far: serving (``predict_``), guided training with resume
+(``train``) and the conditional-utilization eval (``eval_``: the recording
+pass and the flow-off pass, ``analysis/``), on the two-tower ResNet-18 +
+MMTM model, with the fused MMTM gating forward and backward as hand-written
+CUDA kernels (``ops/mmtm_gating.py``, ``csrc/``).
 """
 
 __version__ = "0.1.0"

@@ -1,5 +1,5 @@
-from .checkpoint import load_weights, save_weights, state_dict_from_jax
+from .checkpoint import load_training_state, load_weights, save_weights, state_dict_from_jax
 from .controller import ControllerState, guided_update, init_controller_state, null_update
 from .framework import Trainer
-from .loop import training_loop
+from .loop import evalution_loop, training_loop
 from .train_state import get_learning_rate, make_optimizer, set_learning_rate

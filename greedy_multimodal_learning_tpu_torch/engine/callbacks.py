@@ -4,7 +4,9 @@ plateau, checkpointing and progress lines, with the JAX package's gin names.
 
 The guided controller's arithmetic runs inside the train step
 (``engine/controller.py``); its callback carries the configuration and
-unlocks the controller at ``starting_epoch``.  The random, weakest and
+unlocks the controller at ``starting_epoch``.  On resume, ``training_loop``
+replays the history into the stopping and plateau callbacks (``replay``)
+and sets the best-val checkpoint's ``best``.  The random, weakest and
 adaptive controllers are not ported yet: their names raise in
 ``entries.train``.
 """
@@ -176,7 +178,11 @@ class CompletedStopping(Callback):
 
     def on_train_begin(self, logs):
         self.stopped_epoch = 0
-        self.counter = 0
+        self.counter = getattr(self, "_replayed_counter", 0)
+
+    def replay(self, history_values):
+        """The counter from earlier epochs' values (``callbacks.py:425``)."""
+        self._replayed_counter = sum(1 for v in history_values if v == 100)
 
     def on_epoch_end(self, epoch, logs):
         if logs[self.monitor] == 100:
@@ -205,8 +211,23 @@ class ReduceLROnPlateau_PyTorch(Callback):
         self.eps = 1e-8
 
     def on_train_begin(self, logs):
-        self.best = float("inf")
-        self.num_bad_epochs = 0
+        self.best = getattr(self, "_replayed_best", float("inf"))
+        self.num_bad_epochs = getattr(self, "_replayed_bad", 0)
+
+    def replay(self, history_values):
+        """``best`` and the bad-epoch count from earlier epochs' values
+        (``callbacks.py:461``); the learning rate itself comes back with the
+        optimizer state."""
+        best, bad = float("inf"), 0
+        for v in history_values:
+            v = float(v)
+            if v < best * (1.0 - self.threshold):
+                best, bad = v, 0
+            else:
+                bad += 1
+                if bad > self.patience:
+                    bad = 0
+        self._replayed_best, self._replayed_bad = best, bad
 
     def on_epoch_end(self, epoch, logs):
         current = float(logs[self.metric])

@@ -16,6 +16,9 @@ MMTM buffers included.
 ``num_batches_tracked``), so the JAX package reads the port's checkpoints,
 plus a torch-native sidecar ``<file>.torch.pt`` with what the ``.pt`` lacks:
 the MMTM buffers, the controller state, the step and the optimizer state.
+``load_training_state`` reads both back for an exact resume
+(``checkpoint.py:238-305``); a run of the JAX package cannot be resumed
+here, since its ``.jax.pkl`` pickles optax.
 """
 
 from __future__ import annotations
@@ -129,3 +132,27 @@ def save_weights(model: torch.nn.Module, filepath, *, optimizer=None, controller
         },
         f"{filepath}.torch.pt",
     )
+
+
+def load_training_state(model: torch.nn.Module, optimizer, filepath) -> dict:
+    """Load ``filepath`` and its sidecar ``<file>.torch.pt`` into ``model``
+    (parameters, BatchNorm statistics, MMTM buffers) and ``optimizer``;
+    returns the sidecar's ``{"controller": {name: tensor}, "step": int}``.
+    Raises FileNotFoundError when the sidecar is missing."""
+    sidecar_path = f"{filepath}.torch.pt"
+    if not os.path.exists(sidecar_path):
+        other = " (a .jax.pkl sidecar is there: the JAX package's runs resume only in the JAX package)" if (
+            os.path.exists(f"{filepath}.jax.pkl")) else ""
+        raise FileNotFoundError(
+            f"resume needs {sidecar_path}, the sidecar save_weights writes beside {filepath}{other}"
+        )
+    load_weights(model, filepath)
+    side = torch.load(sidecar_path, map_location="cpu", weights_only=True)
+    missing = [k for k in side["mmtm"] if k not in model.state_dict()]
+    if missing:
+        raise KeyError(f"{sidecar_path}: MMTM buffers the model lacks: {missing}")
+    model.load_state_dict(side["mmtm"], strict=False)
+    if optimizer is not None and side["optimizer"] is not None:
+        optimizer.load_state_dict(side["optimizer"])
+    logger.info("Restored %s and its sidecar (step %s)", filepath, side["step"])
+    return {"controller": side["controller"], "step": int(side["step"])}

@@ -1,14 +1,21 @@
 """Trainer: the engine around the model (``greedy_multimodal_learning_tpu/engine/framework.py``).
 
-The epoch loop (train, then validation and test passes), size-weighted
-epoch metrics, callback hooks and the NaN stop, plus serving (``predict``).
-Step outputs stay on the device and are fetched once per epoch; a NaN loss
-stops training after the epoch, as in the JAX package.  The controller
-state lives on the device and enters each step as tensors; callbacks flip
-host latches (``unlock_controller``).
+The epoch loop (train, then validation and test passes), the eval loop,
+size-weighted epoch metrics, callback hooks and the NaN stop, plus serving
+(``predict``).  Step outputs stay on the device and are fetched once per
+pass; a NaN loss stops training after the epoch, as in the JAX package.
+The controller state lives on the device and enters each step as tensors;
+callbacks flip host latches (``unlock_controller``).
 
-Not ported: the scanned eval, ``fold_bn_eval``, recording outputs and the
-data-parallel mesh.
+A trainer built with ``mmtm_off`` runs every eval and predict forward with
+the cross-modal flow cut (``average_squeezemaps``, turned into device
+tensors once).  With the model's saving flags on, each pass adds the
+recorded scales and squeeze maps, per batch, MMTM and view, trimmed to the
+batch's real rows (``framework.py:270-282,539-568``); a
+``rescale_accumulator`` takes the squeeze maps on the device instead.
+
+Not ported: the scanned eval (it served the TPU's remote link),
+``fold_bn_eval`` and the data-parallel mesh.
 """
 
 from __future__ import annotations
@@ -26,8 +33,8 @@ from . import checkpoint as ckpt
 from ..data.transforms import draw_flips, preprocess
 from .bdr import GroupReducer
 from .callbacks import CallbackList, ProgressionCallback, ValidationProgressionCallback
-from .controller import guided_update, init_controller_state, null_update
-from .steps import eval_step, train_step
+from .controller import ControllerState, guided_update, init_controller_state, null_update
+from .steps import RECORD_KEYS, eval_step, train_step
 from .train_state import get_learning_rate, set_learning_rate
 
 logger = logging.getLogger(__name__)
@@ -64,6 +71,39 @@ def _fetch(records):
     return out
 
 
+def _fetch_records(per_batch, sizes):
+    """One device-to-host copy for per-batch {key: [MMTM][view] (B, C)
+    tensor} recordings, each batch trimmed to its ``size`` real rows on the
+    device; returns {key: [batch][MMTM][view] numpy (size, C)}."""
+    if not per_batch or not per_batch[0]:
+        return {}
+    keys = list(per_batch[0])
+    leaves = [t[:size].reshape(-1) for rec, size in zip(per_batch, sizes) for k in keys for m in rec[k] for t in m]
+    flat = torch.cat(leaves).cpu().numpy()
+    out, offset = {k: [] for k in keys}, 0
+    for rec, size in zip(per_batch, sizes):
+        for k in keys:
+            batch = []
+            for m in rec[k]:
+                views = []
+                for t in m:
+                    n = size * t.shape[1]
+                    views.append(flat[offset:offset + n].reshape(size, t.shape[1]))
+                    offset += n
+                batch.append(views)
+            out[k].append(batch)
+    return out
+
+
+def _device_maps(average_squeezemaps, device):
+    """The analysis pipeline's 4-slot maps (None or a list of per-view
+    arrays a slot) as float32 tensors on ``device``."""
+    if average_squeezemaps is None:
+        return None
+    return [None if slot is None else [torch.as_tensor(np.asarray(v), dtype=torch.float32).to(device) for v in slot]
+            for slot in average_squeezemaps]
+
+
 class Trainer:
     def __init__(
         self,
@@ -76,6 +116,8 @@ class Trainer:
         verbose: bool = True,
         device="cuda",
         seed: int = 777,
+        average_squeezemaps=None,
+        mmtm_off: bool = False,
     ):
         self.model = model
         self.optimizer = optimizer
@@ -92,13 +134,18 @@ class Trainer:
         self.curated_steps = 0
         self._seed = int(seed)
         self._flip_gen = torch.Generator(device=self.device)
+        self.mmtm_off = bool(mmtm_off)
+        self.average_squeezemaps = _device_maps(average_squeezemaps, self.device)
+        if self.mmtm_off and self.average_squeezemaps is None:
+            raise ValueError("mmtm_off needs average_squeezemaps (analysis.get_rescale_weights)")
+        # analysis.ondevice_rescale.RescaleMeanAccumulator: takes the eval
+        # passes' squeeze maps on the device instead of the history
+        self.rescale_accumulator = None
+        self._skip_next_controller_reset = False
         if optimizer is None:
             return
         if controller_kind not in ("none", "guided"):
             raise NotImplementedError(f"the {controller_kind!r} controller is not ported yet (see ROADMAP.md)")
-        if getattr(model, "saving_mmtm_scales", False) or getattr(model, "saving_mmtm_squeeze_array", False):
-            raise NotImplementedError("recording MMTM scales or squeeze maps during training is not ported yet "
-                                      "(see ROADMAP.md)")
         branchnames = self.controller_config.get("branchnames") or [f"net_view_{i}" for i in range(nummodalities)]
         mmtm_names = self.controller_config.get("mmtm_names") or list(model.modality_names)
         self._reducer = GroupReducer([n for n, _ in model.named_parameters()], branchnames, mmtm_names)
@@ -119,6 +166,10 @@ class Trainer:
     # --- handles used by callbacks ---
 
     def reset_controller(self):
+        if self._skip_next_controller_reset:
+            # a resume has just restored the controller from the sidecar
+            self._skip_next_controller_reset = False
+            return
         self.ctrl = init_controller_state(self.nummodalities, self.device)
         self._unlock = False
 
@@ -137,6 +188,16 @@ class Trainer:
 
     def load_weights(self, filepath):
         ckpt.load_weights(self.model, filepath)
+
+    def restore(self, filepath):
+        """Exact resume from ``filepath`` and its ``.torch.pt`` sidecar:
+        parameters, BatchNorm statistics, MMTM buffers, optimizer state,
+        controller state and step; the next train-begin controller reset is
+        skipped (``framework.py:174-179``)."""
+        state = ckpt.load_training_state(self.model, self.optimizer, filepath)
+        self.ctrl = ControllerState(**{k: v.to(self.device) for k, v in state["controller"].items()})
+        self.step = int(state["step"])
+        self._skip_next_controller_reset = True
 
     # --- epoch loops ---
 
@@ -160,7 +221,7 @@ class Trainer:
         return out
 
     def _train_epoch(self, generator, steps_per_epoch, callback_list):
-        records, sizes, indices = [], [], []
+        records, recorded, sizes, indices = [], [], [], []
         unlock = torch.tensor(self._unlock, device=self.device)
         for batch_ind, batch in _steps(generator, steps_per_epoch):
             batch_begin_time = timeit.default_timer()
@@ -170,6 +231,7 @@ class Trainer:
             data = self._to_device(batch)
             out = self.train_batch(data, self.train_flips(*data["images"].shape[:2]), unlock)
             callback_list.on_backward_end(batch_ind)
+            recorded.append({k: out.pop(k) for k in RECORD_KEYS if k in out})
             records.append(out)
             sizes.append(size)
             indices.append(np.asarray(batch["indices"])[:size])
@@ -198,6 +260,8 @@ class Trainer:
         for i in range(self.nummodalities):
             vals = np.array([o["acc_modal"][i] for o in outs])
             train_dict[f"acc_modal_{i}"] = float((vals * sizes).sum() / total)
+        for key, per_batch in _fetch_records(recorded, [int(n) for n in sizes]).items():
+            train_dict[f"train_{key}"] = per_batch
         if np.isnan(losses).any():
             self.stop_training = True
         return train_dict
@@ -212,15 +276,21 @@ class Trainer:
             steps = len(generator)
         progress = ValidationProgressionCallback(phase=phase, steps=steps, metrics_names=["loss"] + self.metrics_names)
         progress.set_model_pytoune(self)
-        records, sizes, indices = [], [], []
+        records, recorded, sizes, indices = [], [], [], []
+        accumulator = self.rescale_accumulator
         for batch_ind, batch in _steps(generator, steps):
             batch_begin_time = timeit.default_timer()
             progress.on_batch_begin(batch_ind, {})
             size = batch["size"]
-            out = eval_step(self.model, self.ctrl, self._to_device(batch))
+            out = eval_step(self.model, self.ctrl, self._to_device(batch), mmtm_off=self.mmtm_off,
+                            average_squeezemaps=self.average_squeezemaps)
+            indices.append(np.asarray(batch["indices"])[:size])
+            if accumulator is not None and "squeezedmaps_array_list" in out:
+                accumulator.consume(out.pop("squeezedmaps_array_list"),
+                                    accumulator.member_mask(indices[-1], size, len(batch["mask"])))
+            recorded.append({k: out.pop(k) for k in RECORD_KEYS if k in out})
             records.append(out)
             sizes.append(size)
-            indices.append(np.asarray(batch["indices"])[:size])
             batch_logs = {"batch": batch_ind, "size": size, "batch_begin_time": batch_begin_time,
                           "loss": out["loss"], "acc": out["acc"]}
             progress.on_batch_end(batch_ind, batch_logs)
@@ -239,6 +309,8 @@ class Trainer:
         for i in range(self.nummodalities):
             vals = np.array([o["acc_modal"][i] for o in outs])
             info[f"{phase}_acc_modal_{i}"] = float((vals * sizes).sum() / total)
+        for key, per_batch in _fetch_records(recorded, [int(n) for n in sizes]).items():
+            info[f"{phase}_{key}"] = per_batch
         return info
 
     def train_loop(
@@ -289,6 +361,21 @@ class Trainer:
                 break
         callback_list.on_train_end({})
 
+    def eval_loop(self, test_generator, *, test_steps=None, epochs=1, callbacks=()):
+        """Test passes numbered 0..``epochs``, so ``epochs=0`` runs one
+        (``framework.py:679-694``), each ending in ``on_epoch_end``."""
+        callback_list = CallbackList(list(callbacks))
+        callback_list.set_model_pytoune(self)
+        callback_list.on_train_begin({})
+        for epoch in range(epochs + 1):
+            epoch_begin_time = timeit.default_timer()
+            callback_list.on_epoch_begin(epoch, {})
+            test_dict = self._eval_generator(test_generator, "test", steps=test_steps)
+            test_dict["epoch"] = epoch
+            test_dict["time"] = timeit.default_timer() - epoch_begin_time
+            test_dict["epoch_begin_time"] = epoch_begin_time
+            callback_list.on_epoch_end(epoch, test_dict)
+
     # --- serving ---
 
     @torch.no_grad()
@@ -323,11 +410,14 @@ class Trainer:
 
     @torch.no_grad()
     def _predict_step(self, batch):
-        """One batch through the eval forward.  Returns (new MMTM state as
-        ``{"mmtm2": {buffer: tensor}, ...}``, [per-view logits])."""
+        """One batch through the eval forward, the cross-modal flow cut when
+        the trainer has ``mmtm_off``, as its eval passes run.  Returns (new
+        MMTM state as ``{"mmtm2": {buffer: tensor}, ...}``, [per-view
+        logits])."""
         images = torch.from_numpy(batch["images"]).to(self.device)
         mask = torch.from_numpy(batch["mask"]).to(self.device)
         x = preprocess(images, train=False, dtype=self.model.dtype)
         mmtm_state = {}
-        _, logits, _, _ = self.model(x, valid_mask=mask, mmtm_state=mmtm_state)
+        _, logits, _, _ = self.model(x, valid_mask=mask, mmtm_state=mmtm_state, mmtm_off=self.mmtm_off,
+                                     average_squeezemaps=self.average_squeezemaps)
         return mmtm_state, logits

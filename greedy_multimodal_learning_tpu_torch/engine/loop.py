@@ -1,6 +1,7 @@
-"""``training_loop`` (``greedy_multimodal_learning_tpu/engine/loop.py:80-285``):
-callbacks, history and checkpoints around :meth:`Trainer.train_loop`, with
-the reference quirks the JAX package keeps:
+"""``training_loop`` and ``evalution_loop`` [sic]
+(``greedy_multimodal_learning_tpu/engine/loop.py:80-429``): callbacks,
+history and checkpoints around :meth:`Trainer.train_loop` and
+:meth:`Trainer.eval_loop`, with the reference quirks the JAX package keeps:
 
 * ``n_epochs - 1`` epochs run (``loop.py:279``),
 * ``history.pkl`` is removed at start while ``history.pickle`` is written
@@ -8,19 +9,27 @@ the reference quirks the JAX package keeps:
 * the structured ``history.pickle`` is written only when custom callbacks
   are present (``loop.py:147,164``),
 * best-val checkpointing is dropped on an empty validation split
-  (``loop.py:154-167``).
+  (``loop.py:154-167``),
+* the eval history goes to ``save_path/eval_history_batch/``.
 
-``resume``, ``data_parallel``, ``model_parallel`` other than 1, ``orbax_dir``
-and ``fold_bn_eval`` are not ported and raise.
+``resume`` continues a run of the port from ``model_last_epoch.pt`` and its
+``.torch.pt`` sidecar (``loop.py:114-139,205-270``); ``checkpoint_every``
+spaces the last-epoch checkpoints.  ``data_parallel``, ``model_parallel``
+other than 1, ``orbax_dir`` and ``fold_bn_eval`` are not ported and raise.
 """
 
 from __future__ import annotations
 
+import csv
 import logging
 import os
+import pickle
 from functools import partial
 
+import numpy as np
+
 from .. import config as cfg
+from ..analysis.ondevice_rescale import RESCALE_MEANS_FILENAME, RescaleMeanAccumulator
 from .callbacks import LambdaCallback, ModelCheckpoint
 from .framework import Trainer
 from .history import append_to_history, save_history
@@ -34,6 +43,12 @@ def _remove_stale(paths):
             os.remove(p)
         except FileNotFoundError:
             pass
+
+
+def _raise_unported(**options):
+    for name, value in options.items():
+        if value:
+            raise NotImplementedError(f"{name} is not ported yet (see ROADMAP.md)")
 
 
 def _construct_default_callbacks(H, save_path, checkpoint_monitor, save_with_structure=False):
@@ -53,6 +68,52 @@ def _detect_controller(custom_callbacks):
         if kind != "none":
             return kind, clbk.controller_config()
     return "none", {}
+
+
+def _csv_value(text):
+    for parse in (int, float):
+        try:
+            return parse(text)
+        except ValueError:
+            pass
+    return text
+
+
+def _load_history(save_path) -> dict:
+    """A run's history: ``history.pickle`` when there is one (it also holds
+    the per-epoch arrays), else the columns of ``history.csv``."""
+    pickle_path = os.path.join(save_path, "history.pickle")
+    if os.path.exists(pickle_path):
+        with open(pickle_path, "rb") as f:
+            return pickle.load(f)
+    with open(os.path.join(save_path, "history.csv"), newline="") as f:
+        rows = list(csv.reader(f))
+    return {name: [_csv_value(r[i]) for r in rows[1:]] for i, name in enumerate(rows[0])}
+
+
+def _resume(trainer, H, callbacks, last_ckpt, steps_per_epoch, checkpoint_monitor) -> int:
+    """Restore the trainer from ``last_ckpt``, cut the history back to the
+    checkpoint's epoch (with ``checkpoint_every`` > 1 it can be older than
+    the history), set the best-val checkpoint's ``best`` and replay the
+    history into the callbacks that keep state.  Returns the epoch to
+    continue at."""
+    trainer.restore(last_ckpt)
+    ckpt_epoch = trainer.step // max(int(steps_per_epoch), 1)
+    if H.get("epoch") and ckpt_epoch < int(H["epoch"][-1]):
+        logger.info("Checkpoint is at epoch %d, the history at %d: truncating the history to the checkpoint",
+                    ckpt_epoch, int(H["epoch"][-1]))
+        keep = sum(1 for e in H["epoch"] if int(e) <= ckpt_epoch)
+        for key in H:
+            del H[key][keep:]
+    initial_epoch = (int(H["epoch"][-1]) if H.get("epoch") else ckpt_epoch) + 1
+    for clbk in callbacks:
+        if isinstance(clbk, ModelCheckpoint) and H.get(checkpoint_monitor):
+            clbk.best = max(H[checkpoint_monitor])
+        metric = getattr(clbk, "metric", getattr(clbk, "monitor", None))
+        if hasattr(clbk, "replay") and metric in H:
+            clbk.replay(H[metric])
+    logger.info("Resuming from %s at epoch %d", last_ckpt, initial_epoch)
+    return initial_epoch
 
 
 @cfg.configurable
@@ -78,26 +139,37 @@ def training_loop(
     data_parallel=False,
     model_parallel=1,
     orbax_dir=None,
+    checkpoint_every=1,
     fold_bn_eval=False,
     device="cuda",
     seed=777,
 ):
     """Train ``model`` (already on ``device``) with ``optimizer``; returns
     the :class:`Trainer`.  ``use_gpu``/``device_numbers`` are accepted for
-    the gin surface and ignored."""
-    for name, value in (("resume", resume), ("data_parallel", data_parallel), ("orbax_dir", orbax_dir),
-                        ("fold_bn_eval", fold_bn_eval), ("model_parallel", model_parallel != 1)):
-        if value:
-            raise NotImplementedError(f"training_loop.{name} is not ported yet (see ROADMAP.md)")
+    the gin surface and ignored.  ``resume`` continues from
+    ``model_last_epoch.pt`` when it and ``history.csv`` exist, and starts
+    fresh otherwise."""
+    _raise_unported(**{
+        "training_loop.data_parallel": data_parallel, "training_loop.orbax_dir": orbax_dir,
+        "training_loop.fold_bn_eval": fold_bn_eval, "training_loop.model_parallel": model_parallel != 1,
+    })
     callbacks = list(custom_callbacks)
     os.makedirs(save_path, exist_ok=True)
 
     history_csv_path = os.path.join(save_path, "history.csv")
     history_pkl_path = os.path.join(save_path, "history.pkl")
-    logger.info("Removing %s and %s", history_pkl_path, history_csv_path)
-    _remove_stale([history_pkl_path, history_csv_path])
+    last_ckpt = os.path.join(save_path, "model_last_epoch.pt")
+    resuming = bool(resume) and os.path.exists(last_ckpt) and os.path.exists(history_csv_path)
+    if resuming and not os.path.exists(f"{last_ckpt}.torch.pt"):
+        raise FileNotFoundError(
+            f"training_loop.resume: {last_ckpt}.torch.pt is missing; the port resumes only from the sidecar "
+            "its own save_weights writes (a run of the JAX package resumes in the JAX package)"
+        )
 
-    H = {}
+    H = _load_history(save_path) if resuming else {}
+    if not resuming:
+        logger.info("Removing %s and %s", history_pkl_path, history_csv_path)
+        _remove_stale([history_pkl_path, history_csv_path])
     empty_val = not validation_steps or (valid is not None and len(valid) == 0)
     drop_best_val = empty_val and checkpoint_monitor.startswith("val")
     if drop_best_val:
@@ -129,8 +201,13 @@ def training_loop(
         clbk.set_config(config)
         clbk.set_model_pytoune(trainer)
 
-    last_ckpt = os.path.join(save_path, "model_last_epoch.pt")
-    callbacks.append(LambdaCallback(on_epoch_end=lambda epoch, logs: trainer.save_weights(last_ckpt)))
+    initial_epoch = 1
+    if resuming:
+        initial_epoch = _resume(trainer, H, callbacks, last_ckpt, steps_per_epoch, checkpoint_monitor)
+    every = max(int(checkpoint_every), 1)
+    callbacks.append(LambdaCallback(
+        on_epoch_end=lambda epoch, logs: trainer.save_weights(last_ckpt) if epoch % every == 0 else None
+    ))
 
     trainer.train_loop(
         train,
@@ -141,5 +218,102 @@ def training_loop(
         steps_per_epoch=steps_per_epoch,
         epochs=n_epochs - 1,  # quirk #3 (reference: src/training_loop.py:141)
         callbacks=callbacks,
+        initial_epoch=initial_epoch,
     )
+    return trainer
+
+
+def _construct_default_eval_callbacks(H, save_path, save_with_structure):
+    history_batch = os.path.join(save_path, "eval_history_batch")
+    os.makedirs(history_batch, exist_ok=True)
+    return [
+        LambdaCallback(on_epoch_end=partial(append_to_history, H=H)),
+        LambdaCallback(
+            on_epoch_end=partial(save_history, save_path=history_batch, H=H, save_with_structure=save_with_structure)
+        ),
+    ]
+
+
+@cfg.configurable
+def evalution_loop(  # [sic] the reference's name, kept for the gin surface
+    model,
+    config,
+    save_path,
+    test=None,
+    test_steps=None,
+    use_gpu=False,
+    device_numbers=(0,),
+    custom_callbacks=(),
+    pretrained_weights_path=None,
+    save_with_structure=False,
+    nummodalities=2,
+    average_squeezemaps=None,
+    mmtm_off=False,
+    data_parallel=False,
+    model_parallel=1,
+    fold_bn_eval=False,
+    ondevice_rescale=False,
+    ondevice_rescale_training_path=None,
+    ondevice_rescale_validation=False,
+    device="cuda",
+):
+    """One test pass of ``model`` (already on ``device``) with the weights of
+    ``pretrained_weights_path``, its history in ``save_path/eval_history_batch/``.
+    ``ondevice_rescale`` reduces the squeeze maps to their means over the
+    training run's train (or val) indices on the device and writes them as
+    ``eval_history_batch/rescale_means.pkl`` (``loop.py:350-373,401-428``).
+    Returns the :class:`Trainer`."""
+    _raise_unported(**{
+        "evalution_loop.data_parallel": data_parallel, "evalution_loop.fold_bn_eval": fold_bn_eval,
+        "evalution_loop.model_parallel": model_parallel != 1,
+    })
+    trainer = Trainer(
+        model,
+        nummodalities=nummodalities,
+        device=device,
+        average_squeezemaps=average_squeezemaps,
+        mmtm_off=mmtm_off,
+    )
+    trainer.load_weights(pretrained_weights_path)
+
+    selected = None
+    if ondevice_rescale:
+        # the training run's history.pickle conventionally lives in this
+        # save_path: the recording pass runs inside the training directory
+        with open(os.path.join(ondevice_rescale_training_path or save_path, "history.pickle"), "rb") as f:
+            training_history = pickle.load(f)
+        selected = np.asarray(training_history["val_indices" if ondevice_rescale_validation else "train_indices"][0])
+        trainer.rescale_accumulator = RescaleMeanAccumulator(selected, trainer.device)
+
+    os.makedirs(save_path, exist_ok=True)
+    history_batch = os.path.join(save_path, "eval_history_batch")
+    stale = [os.path.join(save_path, "eval_history.pkl"), os.path.join(save_path, "eval_history.csv")]
+    logger.info("Removing %s and %s", *stale)
+    # a means file left by an earlier recording must not stand for this one
+    _remove_stale(stale + [os.path.join(history_batch, RESCALE_MEANS_FILENAME)])
+
+    H = {}
+    callbacks = list(custom_callbacks) + _construct_default_eval_callbacks(H, save_path, save_with_structure)
+    for clbk in callbacks:
+        clbk.set_save_path(save_path)
+        clbk.set_model(trainer, ignore=False)
+        clbk.set_config(config)
+        clbk.set_model_pytoune(trainer)
+
+    trainer.eval_loop(test, epochs=0, test_steps=test_steps, callbacks=callbacks)
+
+    if trainer.rescale_accumulator is not None:
+        means, count = trainer.rescale_accumulator.means()
+        out_path = os.path.join(history_batch, RESCALE_MEANS_FILENAME)
+        with open(out_path, "wb") as f:
+            pickle.dump({
+                "key": "test_squeezedmaps_array_list",
+                "validation": bool(ondevice_rescale_validation),
+                "means": means,
+                "count": count,
+                # the index set the means were taken over: get_rescale_weights
+                # takes them only when its own selection is the same
+                "selected": np.asarray(selected, np.int64),
+            }, f)
+        logger.info("on-device rescale means written to %s (%d member samples)", out_path, count)
     return trainer

@@ -1,4 +1,4 @@
-"""The train step and the eval step (``greedy_multimodal_learning_tpu/engine/steps.py:87-145,177-222``).
+"""The train step and the eval step (``greedy_multimodal_learning_tpu/engine/steps.py:87-145,152-224``).
 
 One train step, in the JAX package's order:
 
@@ -12,6 +12,13 @@ PyTorch updates the parameters in place, so the weight sums are read before
 point (``steps.py:114-117``).  BatchNorm running statistics and the MMTM
 running averages update in place during the forward.  Every output stays
 on the device.
+
+When the model's ``saving_mmtm_scales`` / ``saving_mmtm_squeeze_array`` is
+set, both steps also return the per-(MMTM, view) gates and squeeze maps as
+float32 (B, C) tensors under ``mmtmscales_list`` /
+``squeezedmaps_array_list``, nested [MMTM][view].  The JAX package packs
+them into one flat buffer for its TPU's remote link (``steps.py:196-200``);
+here they stay separate tensors, fetched once a pass by the trainer.
 """
 
 from __future__ import annotations
@@ -26,9 +33,24 @@ from .controller import ControllerState
 from .metrics import blend_and_per_view_acc, blend_loss
 
 
+RECORD_KEYS = ("mmtmscales_list", "squeezedmaps_array_list")
+
+
 def _step_outputs(logits, labels, mask, loss):
     blend_acc, per_view_acc = blend_and_per_view_acc(logits, labels, mask)
     return {"loss": loss.detach(), "acc": blend_acc, "acc_modal": per_view_acc}
+
+
+def _records(model, scales, squeezes) -> dict:
+    """The recording outputs the model's saving flags ask for."""
+    out = {}
+    for key, value, enabled in (
+        ("mmtmscales_list", scales, model.saving_mmtm_scales),
+        ("squeezedmaps_array_list", squeezes, model.saving_mmtm_squeeze_array),
+    ):
+        if enabled:
+            out[key] = [[t.detach().float() for t in per_mmtm] for per_mmtm in value]
+    return out
 
 
 def train_step(
@@ -46,7 +68,7 @@ def train_step(
     ``flips``.  Returns (new controller state, outputs)."""
     x = preprocess(batch["images"], train=True, flip=flips, dtype=model.dtype)
     mask, labels = batch["mask"], batch["labels"]
-    _, logits, _, _ = model(x, ctrl.curation_mode, ctrl.caring_modality, train=True, valid_mask=mask)
+    _, logits, scales, squeezes = model(x, ctrl.curation_mode, ctrl.caring_modality, train=True, valid_mask=mask)
     loss = blend_loss(logits, labels, mask)
 
     params = [p for group in optimizer.param_groups for p in group["params"]]
@@ -62,15 +84,24 @@ def train_step(
         out = _step_outputs(logits, labels, mask, loss)
     out.update(d_BDR=new_ctrl.d_BDR, curation_mode=new_ctrl.curation_mode,
                caring_modality=new_ctrl.caring_modality, curated=ctrl.curation_mode)
+    out.update(_records(model, scales, squeezes))
     return new_ctrl, out
 
 
 @torch.no_grad()
-def eval_step(model, ctrl: ControllerState, batch: Dict[str, torch.Tensor]):
+def eval_step(model, ctrl: ControllerState, batch: Dict[str, torch.Tensor], *, mmtm_off: bool = False,
+              average_squeezemaps=None):
     """One eval batch: BatchNorm on its running statistics, the live
     curation flags, and the new MMTM running averages kept in the buffers,
-    as the JAX package's trainer keeps them (``framework.py:481-482``)."""
+    as the JAX package's trainer keeps them (``framework.py:481-482``).
+    ``mmtm_off`` cuts the cross-modal flow with the 4-slot
+    ``average_squeezemaps`` (see :func:`~..models.fusion.fused_towers_forward`)."""
     x = preprocess(batch["images"], train=False, dtype=model.dtype)
     mask, labels = batch["mask"], batch["labels"]
-    _, logits, _, _ = model(x, ctrl.curation_mode, ctrl.caring_modality, train=False, valid_mask=mask)
-    return _step_outputs(logits, labels, mask, blend_loss(logits, labels, mask))
+    _, logits, scales, squeezes = model(
+        x, ctrl.curation_mode, ctrl.caring_modality, train=False, valid_mask=mask,
+        mmtm_off=mmtm_off, average_squeezemaps=average_squeezemaps,
+    )
+    out = _step_outputs(logits, labels, mask, blend_loss(logits, labels, mask))
+    out.update(_records(model, scales, squeezes))
+    return out

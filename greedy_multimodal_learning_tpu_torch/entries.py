@@ -1,5 +1,7 @@
-"""The configurable training entry (``greedy_multimodal_learning_tpu/entries.py:39-91``),
-driven by ``python -m greedy_multimodal_learning_tpu_torch.train``."""
+"""The configurable entries (``greedy_multimodal_learning_tpu/entries.py``):
+``train`` (``:39-91``), driven by ``python -m
+greedy_multimodal_learning_tpu_torch.train``, and ``eval_`` (``:94-157``),
+driven by ``python -m greedy_multimodal_learning_tpu_torch.eval``."""
 
 from __future__ import annotations
 
@@ -8,13 +10,14 @@ import logging
 import torch
 
 from . import config as cfg
-from .bootstrap import build_model_and_loaders, init_model, resolve_device
+from .analysis import get_rescale_weights
+from .bootstrap import build_model_and_loaders, init_model, resolve_device, select_split
 from .engine import callbacks as avail_callbacks
-from .engine import make_optimizer, training_loop
+from .engine import evalution_loop, make_optimizer, training_loop
 
 logger = logging.getLogger(__name__)
 
-# The callbacks train.callbacks may name; the JAX package's other
+# The callbacks train.callbacks and eval_.callbacks may name; the JAX package's other
 # controllers are not ported yet.
 CALLBACKS = {
     name: getattr(avail_callbacks, name)
@@ -34,14 +37,14 @@ def set_matmul_precision(precision):
     torch.backends.cudnn.allow_tf32 = allow
 
 
-def construct_callbacks(names):
+def construct_callbacks(names, where="train.callbacks"):
     """Callbacks by name; an unknown name raises KeyError (``entries.py:60-65``)."""
     out = []
     for name in names:
         if name in NOT_PORTED:
             raise NotImplementedError(f"callback {name!r} (its controller) is not ported yet (see ROADMAP.md)")
         if name not in CALLBACKS:
-            raise KeyError(f"Unknown callback {name!r} in train.callbacks")
+            raise KeyError(f"Unknown callback {name!r} in {where}")
         out.append(CALLBACKS[name]())
     return out
 
@@ -73,4 +76,47 @@ def train(save_path, wd=0.0, lr=0.1, momentum=0.0, batch_size=8, callbacks=(), s
         nummodalities=net.num_towers,
         device=device,
         seed=seed,
+    )
+
+
+@cfg.configurable
+def eval_(save_path, target_data_split="test", pretrained_weights_path=None, batch_size=128, callbacks=(), seed=777,
+          model="MMTM_MVCNN", matmul_precision=None, device="cuda"):
+    """Evaluate a checkpoint on a data split with :func:`evalution_loop`.
+    With ``MMTM_MVCNN.mmtm_off=True`` the dataset-average squeeze maps come
+    from the recording named by ``MMTM_MVCNN.mmtm_rescale_eval_file_path``
+    and the training run at ``mmtm_rescale_training_file_path``, and every
+    MMTM runs with the cross-modal flow cut.  Runs on the card unless
+    ``device='cpu'`` is bound.  Returns the
+    :class:`~.engine.framework.Trainer`."""
+    device = resolve_device(device)
+    set_matmul_precision(matmul_precision)
+    model_scope = model  # gin scope of the model family's bindings
+    net, loaders = build_model_and_loaders(model, batch_size)
+    target = select_split(loaders, target_data_split)
+
+    mmtm_off = bool(cfg.query(model_scope, "mmtm_off", False))
+    average_squeezemaps = None
+    if mmtm_off:
+        average_squeezemaps = get_rescale_weights(
+            cfg.query(model_scope, "mmtm_rescale_eval_file_path"),
+            cfg.query(model_scope, "mmtm_rescale_training_file_path"),
+            validation=False,
+            starting_mmtmindice=1,
+            mmtmpositions=4,
+        )
+    custom = construct_callbacks(callbacks, "eval_.callbacks")
+    net = init_model(net, seed, device)
+    return evalution_loop(
+        model=net,
+        config=cfg.CONFIG,
+        save_path=save_path,
+        test=target,
+        test_steps=len(target),
+        custom_callbacks=custom,
+        pretrained_weights_path=pretrained_weights_path,
+        nummodalities=net.num_towers,
+        average_squeezemaps=average_squeezemaps,
+        mmtm_off=mmtm_off,
+        device=device,
     )

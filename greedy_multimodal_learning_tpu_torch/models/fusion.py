@@ -4,7 +4,7 @@ avgpool→fc heads and the blend of the per-tower logits."""
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
@@ -21,12 +21,17 @@ def fused_towers_forward(
     caring_modality,
     train: bool,
     valid_mask,
-    saving_scales: bool,
-    saving_squeezes: bool,
+    mmtm_off: bool = False,
+    average_squeezemaps: Optional[Sequence] = None,
+    saving_scales: bool = False,
+    saving_squeezes: bool = False,
     mmtm_state: Optional[dict] = None,
 ):
     """Run layer groups 2..4 + fusion + heads over per-tower ``feats`` (the
     outputs of stem+layer1).  ``mmtms`` maps layer group -> MMTM module.
+    ``average_squeezemaps`` (read with ``mmtm_off``) has the analysis
+    pipeline's 4 slots: slot 0 unused, slots 1..3 for mmtm2..mmtm4
+    (``fusion.py:40-56``).
     With ``mmtm_state`` given, each MMTM writes its new running state there
     under its own name (``mmtm2`` ...) instead of into its buffers.
 
@@ -40,6 +45,8 @@ def fused_towers_forward(
             feats,
             curation_mode=curation_mode,
             caring_modality=caring_modality,
+            turnoff_cross_modal_flow=mmtm_off,
+            average_squeezemaps=average_squeezemaps[li - 1] if mmtm_off else None,
             valid_mask=valid_mask,
             return_scale=saving_scales,
             return_squeezed_mps=saving_squeezes,

@@ -8,7 +8,10 @@
    with a step counter; ``bug_compat`` replicates the reference's update of
    every running average from the first modality's gate (2 modalities only),
 5. curation: the cared-for modality's gate is replaced by the post-update
-   running average.
+   running average,
+6. ``turnoff_cross_modal_flow`` (``mmtm.py:150-166``): each modality sees its
+   own live squeeze and, for every other modality, the dataset-average
+   squeeze broadcast over the batch (the conditional-utilization eval).
 
 Two gating paths compute steps 1-3 and the scale, as in the JAX package:
 the eager path (``mmtm.py:212-217``), where ``fc_*`` add their bias in the
@@ -17,8 +20,9 @@ compute dtype, and the fused kernel path (``mmtm.py:168-211``,
 it in float32 and differentiates with the fused backward.  On CUDA tensors
 ``use_pallas=True`` means the CUDA kernels, forward and backward.
 
-``SEonly``, ``shareweight`` and ``turnoff_cross_modal_flow`` are not ported
-yet and raise.
+The flow-off branch takes precedence over the kernel branch, as in the JAX
+package: it runs no kernel.  ``SEonly`` and ``shareweight`` are not ported yet and
+raise.
 """
 
 from __future__ import annotations
@@ -105,6 +109,7 @@ class MMTM(nn.Module):
         curation_mode=None,
         caring_modality=None,
         turnoff_cross_modal_flow: bool = False,
+        average_squeezemaps: Optional[Sequence[torch.Tensor]] = None,
         valid_mask: Optional[torch.Tensor] = None,
         return_scale: bool = False,
         return_squeezed_mps: bool = False,
@@ -113,13 +118,13 @@ class MMTM(nn.Module):
         """Fuse ``features`` (list of (B, C_i, *spatial) maps).
 
         ``curation_mode`` / ``caring_modality`` are Python values or 0-dim
-        tensors.  The new running averages and step go into the module's
-        buffers, or into ``state_out`` (keyed by buffer name) when it is
-        given, leaving the buffers as they were.  Returns
+        tensors.  With ``turnoff_cross_modal_flow``, ``average_squeezemaps``
+        holds one (C_i,) tensor a modality on the features' device.  The
+        new running averages and step go into the module's buffers, or into
+        ``state_out`` (keyed by buffer name) when it is given, leaving the
+        buffers as they were.  Returns
         (scaled_features, scales, squeezes); scales/squeezes are None unless
         requested."""
-        if turnoff_cross_modal_flow:
-            raise NotImplementedError("turnoff_cross_modal_flow is not ported yet (see ROADMAP.md)")
         n = len(features)
         batch = features[0].shape[0]
         dtype = features[0].dtype
@@ -128,7 +133,7 @@ class MMTM(nn.Module):
         denom = mask.sum().clamp(min=1.0)
 
         pre_scaled = None  # the kernel path returns the live-gate-scaled features
-        if self._use_kernel(features):
+        if self._use_kernel(features) and not turnoff_cross_modal_flow:
             f0, f1 = _as_bsc(features[0]), _as_bsc(features[1])
             cast = lambda t: t.to(dtype)
             e0, e1 = self._excite(0), self._excite(1)
@@ -144,8 +149,21 @@ class MMTM(nn.Module):
             ]
         else:
             squeezes = [f.mean(dim=tuple(range(2, f.dim())), dtype=torch.float32) for f in features]
-            excitation = torch.relu(self.fc_squeeze(torch.cat(squeezes, dim=1).to(dtype)))
-            gates = [torch.sigmoid(self._excite(i)(excitation).float()) for i in range(n)]
+            if not turnoff_cross_modal_flow:
+                excitation = torch.relu(self.fc_squeeze(torch.cat(squeezes, dim=1).to(dtype)))
+                gates = [torch.sigmoid(self._excite(i)(excitation).float()) for i in range(n)]
+            elif average_squeezemaps is None:
+                raise ValueError("turnoff_cross_modal_flow needs average_squeezemaps")
+            else:
+                gates = []
+                for i in range(n):
+                    parts = [
+                        squeezes[j] if j == i
+                        else average_squeezemaps[j].float()[None, :].expand(batch, self.dims[j])
+                        for j in range(n)
+                    ]
+                    excitation = torch.relu(self.fc_squeeze(torch.cat(parts, dim=1).to(dtype)))
+                    gates.append(torch.sigmoid(self._excite(i)(excitation).float()))
 
         # --- running-average gate buffers (updated every forward) ---
         with torch.no_grad():

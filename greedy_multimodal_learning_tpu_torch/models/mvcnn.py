@@ -86,13 +86,16 @@ class MMTMMVCNN(nn.Module):
         train: bool = False,
         valid_mask: Optional[torch.Tensor] = None,
         mmtm_state: Optional[dict] = None,
+        mmtm_off: bool = False,
+        average_squeezemaps: Optional[Sequence] = None,
     ):
         """x: (B, num_towers, H, W, C) image stack.
 
         ``train`` selects batch statistics (masked by ``valid_mask``) in
         every BatchNorm, as ``mvcnn.py:97-118`` of the JAX package does.
         Returns (blend_logits, [per-view logits], scales, squeezed_mps).
-        ``mmtm_state``: see :func:`~.fusion.fused_towers_forward`."""
+        ``mmtm_state``, ``mmtm_off`` and ``average_squeezemaps``: see
+        :func:`~.fusion.fused_towers_forward`."""
         x = x.to(self.dtype)
         towers = self.towers
         feats = []
@@ -107,6 +110,8 @@ class MMTMMVCNN(nn.Module):
             caring_modality=caring_modality,
             train=train,
             valid_mask=valid_mask,
+            mmtm_off=mmtm_off,
+            average_squeezemaps=average_squeezemaps,
             saving_scales=self.saving_mmtm_scales,
             saving_squeezes=self.saving_mmtm_squeeze_array,
             mmtm_state=mmtm_state,

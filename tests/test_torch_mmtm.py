@@ -125,11 +125,31 @@ def test_curation_matches_jax(use_pallas, caring_modality):
     assert not np.allclose(cared, live, rtol=RTOL, atol=ATOL)
 
 
+@pytest.mark.parametrize("use_pallas", [True, False])
+def test_flow_off_matches_jax(use_pallas):
+    """``turnoff_cross_modal_flow``: each modality's gate sees its own live
+    squeeze and the other's dataset average; the branch comes before the
+    kernel branch in both packages, so ``use_pallas`` changes nothing."""
+    jm, variables, tm = _pair(use_pallas)
+    rng = np.random.default_rng(7)
+    avg = [np.abs(rng.normal(size=(C,))).astype(np.float32) for _ in range(2)]
+    feats = _features(3)
+    jax_res = _run_jax(jm, variables, feats, turnoff_cross_modal_flow=True,
+                       average_squeezemaps=[jnp.asarray(a) for a in avg])
+    state = {}
+    torch_res = _run_torch(tm, feats, state_out=state, turnoff_cross_modal_flow=True,
+                           average_squeezemaps=[torch.from_numpy(a) for a in avg])
+    _compare(torch_res, jax_res)
+    _compare_state(state, jax_res[3])
+    # the gates differ from the flow-on forward's
+    flow_on = _run_torch(tm, feats, state_out={})
+    assert not np.allclose(np.asarray(torch_res[1][0]), np.asarray(flow_on[1][0]), rtol=RTOL, atol=ATOL)
+    with pytest.raises(ValueError, match="average_squeezemaps"):
+        _run_torch(tm, feats, state_out={}, turnoff_cross_modal_flow=True)
+
+
 def test_unported_modes_raise():
     with pytest.raises(NotImplementedError):
         MMTM(dims=[C, C], SEonly=True)
     with pytest.raises(NotImplementedError):
         MMTM(dims=[C, C], shareweight=True)
-    tm = MMTM(dims=[C, C])
-    with pytest.raises(NotImplementedError):
-        _run_torch(tm, _features(1), turnoff_cross_modal_flow=True)

@@ -132,11 +132,11 @@ def test_callbacks_by_name():
 
 
 @pytest.mark.parametrize("binding, match", [
-    ("training_loop.resume=True", "resume"),
+    ("training_loop.fold_bn_eval=True", "fold_bn_eval"),
     ("training_loop.data_parallel=True", "data_parallel"),
     ("training_loop.orbax_dir='ckpt'", "orbax_dir"),
     ("training_loop.model_parallel=2", "model_parallel"),
-    ("MMTM_MVCNN.saving_mmtm_scales=True", "recording"),
+    ("MMTM_MVCNN.stem_s2d=True", "stem_s2d"),
 ])
 def test_unported_loop_options_raise(tmp_path, binding, match):
     root = make_synthetic_modelnet(str(tmp_path / "data"), n_train=5, n_test=2, num_views=2, image_size=IMG, nclasses=NC)
