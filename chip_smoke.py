@@ -24,7 +24,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    layout, in float32 and with the ``configs/tpu_bf16.gin`` mixin; the
    kernel's launch count must show every fusion site of every batch; the
    float32 logits must agree with the eager gating path, and a small input
-   must agree with the port's CPU forward;
+   must agree with the port's CPU forward.  Every entry run (phases 3, 5, 7,
+   8 and 9) reads its data through the device-resident corpus, the
+   default: each split it iterates must have its corpus on the card (the
+   corpus bytes are logged);
 4. the backward kernels against their plain version at the same shapes and
    dtypes (oversize included), two runs bit-identical, two CUDA launches a
    call (counted as in phase 2), with the time beside the bound, the plain
@@ -64,8 +67,25 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    within ``STEP_TOL`` of the resumed epoch's update (L2), the backward
    kernel launched 3 x the resumed run's train steps; two straight runs
    with cuDNN's default (non-deterministic) algorithms are printed beside;
-9. a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line, and last
-   ``{"ok": true, "device": {...}}``.
+9. the other controllers through the ``train`` entry on phase 5's split,
+   float32 with the kernels, two epochs: ``configs/training_random.gin``
+   (no step curated before its ``starting_epoch``, each step's decision the
+   draw of (seed, step)), ``configs/training_weakest.gin`` (the target
+   designated after epoch 1 from the validation accuracies, curated on the
+   duty cycle in epoch 2) and the guided configuration with
+   ``Bias_Mitigation_AdaptiveWeakest`` in place of the guided callback
+   (four epochs, windows of one step; each step's window decision as the
+   rule gives it from the designated targets, and at least one window
+   opened); launches 3 x (train steps + eval batches)
+   forward and 3 x train steps backward, finite losses, every artifact;
+10. cached against streamed: ``configs/training_guided.gin`` with the
+   kernels on a synthetic split of 1,024 train, 128 validation and 128
+   test samples, three epochs, float32 and bfloat16, with
+   ``get_mvdcndata.device_cache=False`` and with the default, cuDNN
+   deterministic: the same history and bit-identical parameters and
+   buffers; ``train_samples_per_sec`` of epochs 2 and 3 of each;
+11. a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line, and last
+   ``{"ok": true, "device": {...}}``.  Each phase's seconds are logged.
 
 Scratch files go to ``smoke_out/`` in the checkout (git-ignored); the
 synthetic splits, checkpoints, training and eval runs are removed at exit.
@@ -92,8 +112,10 @@ import torch
 from greedy_multimodal_learning_tpu_torch import config as cfg
 from greedy_multimodal_learning_tpu_torch.analysis import get_rescale_weights
 from greedy_multimodal_learning_tpu_torch.bootstrap import init_model
+from greedy_multimodal_learning_tpu_torch.data.pipeline import DeviceCachePipeline
 from greedy_multimodal_learning_tpu_torch.data.synthetic import make_synthetic_modelnet
 from greedy_multimodal_learning_tpu_torch.engine import Trainer, make_optimizer
+from greedy_multimodal_learning_tpu_torch.engine.controller import random_draw
 from greedy_multimodal_learning_tpu_torch.entries import eval_, train
 from greedy_multimodal_learning_tpu_torch.models import MMTMMVCNN
 from greedy_multimodal_learning_tpu_torch.ops import build as kernel_build
@@ -114,6 +136,8 @@ DATA = os.path.join(WORK, "data")  # synthetic splits, checkpoint and runs: remo
 CKPT = os.path.join(WORK, "seeded.pt")
 TRAIN_DATA = os.path.join(WORK, "train_data")
 TRAIN_RUNS = os.path.join(WORK, "train_runs")
+CACHE_DATA = os.path.join(WORK, "cache_data")
+CACHE_RUNS = os.path.join(WORK, "cache_runs")
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM bytes/s and the
 # arithmetic rate for each input type (bf16 at the tensor-core rate, float32
@@ -167,6 +191,8 @@ SLEEP_CYCLES = 2_000_000  # about 1 ms of device time: longer than any wrapper's
 CPU_LOGIT_TOL = (1e-4, 1e-4)  # (rtol, atol): cuDNN without TF32 vs the CPU's f32 convolutions
 RESCALE_TOL = (1e-5, 1e-6)  # (rtol, atol): on-device means vs the host's, f32 sums in another order
 FUSION_CHANNELS = (128, 256, 512)  # mmtm2..mmtm4
+SEED = 777  # train.seed: the flips' and the random controller's seed
+N_CACHE_TRAIN, N_CACHE_VAL, N_CACHE_TEST = 1024, 128, 128
 
 
 def log(msg):
@@ -355,6 +381,41 @@ def kernel_phase():
     return report
 
 
+# ---- the device-resident corpus (phases 3, 5, 7-10) ---------------------------------
+
+
+@contextlib.contextmanager
+def built_pipelines():
+    """Every :class:`DeviceCachePipeline` built inside the block."""
+    built = []
+    original = DeviceCachePipeline.__init__
+
+    def init(self, *args, **kwargs):
+        original(self, *args, **kwargs)
+        built.append(self)
+
+    DeviceCachePipeline.__init__ = init
+    try:
+        yield built
+    finally:
+        DeviceCachePipeline.__init__ = original
+
+
+def check_resident(tag, built, want):
+    """The run iterated ``want`` splits, each through a corpus on the card
+    (none streamed after a budget refusal); returns their corpus bytes."""
+    used = [p for p in built if p.epoch > 0]
+    where = [(p.num_samples, p.resident, str(p.device)) for p in used]
+    if len(used) != want or not all(p.resident and p.device.type == "cuda" for p in used):
+        raise AssertionError(f"{tag}: iterated splits (samples, resident, device) {where}, want {want} resident "
+                             "on the card")
+    nbytes = sum(p.corpus_nbytes() for p in used)
+    if want:
+        log(f"[cache] {tag}: {want} splits resident on {used[0].device}, corpus {nbytes} B "
+            f"({[p.corpus_nbytes() for p in used]})")
+    return nbytes
+
+
 # ---- phase 3 helpers -------------------------------------------------------------
 
 
@@ -387,11 +448,13 @@ def run_predict(tag, configs, bindings, out_dir):
     cfg.clear_config()
     cfg.parse_config_files_and_bindings([os.path.join(REPO, c) for c in configs], "\n".join(bindings))
     buf = io.StringIO()
-    mmtm_gating.launches = 0
-    with contextlib.redirect_stdout(buf):
-        csv_path, out = predict_(out_dir)
-    torch.cuda.synchronize()
-    launches = mmtm_gating.launches
+    with built_pipelines() as built:
+        mmtm_gating.launches = 0
+        with contextlib.redirect_stdout(buf):
+            csv_path, out = predict_(out_dir)
+        torch.cuda.synchronize()
+        launches = mmtm_gating.launches
+    check_resident(f"predict {tag}", built, 1)
     line = buf.getvalue().strip().splitlines()[-1]
     log(f"[predict {tag}] {line} | kernel launches {launches}")
     rate = float(re.search(r"\(([0-9.]+) samples/s\)", line).group(1))
@@ -567,28 +630,33 @@ def backward_kernel_phase():
 # ---- phase 5 helpers -------------------------------------------------------------
 
 
-def counted(entry, configs, bindings, save_path):
+def counted(entry, configs, bindings, save_path, resident):
     """One run of an entry (``train`` or ``eval_``) through the gin surface,
-    the kernels' counts set to 0 just before it and read just after; returns
-    (what it returned, forward launches, backward launches, seconds)."""
+    the kernels' counts set to 0 just before it and read just after, which
+    must iterate ``resident`` splits through a corpus on the card (see
+    :func:`check_resident`); returns (what it returned, forward launches,
+    backward launches, seconds)."""
     cfg.clear_config()
     cfg.parse_config_files_and_bindings([os.path.join(REPO, c) for c in configs], "\n".join(bindings))
     buf = io.StringIO()
-    mmtm_gating.launches = 0
-    mmtm_gating_bwd.launches = 0
-    t0 = time.time()
-    with contextlib.redirect_stdout(buf):
-        out = entry(save_path)
-    torch.cuda.synchronize()
-    wall = time.time() - t0
+    with built_pipelines() as built:
+        mmtm_gating.launches = 0
+        mmtm_gating_bwd.launches = 0
+        t0 = time.time()
+        with contextlib.redirect_stdout(buf):
+            out = entry(save_path)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        fwd, bwd = mmtm_gating.launches, mmtm_gating_bwd.launches
     cfg.clear_config()
-    return out, mmtm_gating.launches, mmtm_gating_bwd.launches, wall
+    check_resident(os.path.basename(save_path), built, resident)
+    return out, fwd, bwd, wall
 
 
 def run_train(tag, configs, bindings, save_path):
     """One counted run of the ``train`` entry; checks the counts, the curated
     steps, the losses and the artifacts."""
-    trainer, fwd, bwd, wall = counted(train, configs, bindings, save_path)
+    trainer, fwd, bwd, wall = counted(train, configs, bindings, save_path, 3)
     with open(os.path.join(save_path, "history.csv")) as f:
         rows = list(csv.DictReader(f))
     eval_batches = len(rows) * (-(-N_VAL // BATCH) + -(-N_TRAIN_TEST // BATCH))
@@ -826,7 +894,7 @@ def eval_phase(run_dir):
         ("record_f32_eager", ["configs/recording.gin"], base + ["MMTM_mitigate.use_pallas=False"],
          os.path.join(TRAIN_RUNS, "rec_eager")),
     ):
-        trainer, fwd, bwd, wall = counted(eval_, configs, bindings, save_path)
+        trainer, fwd, bwd, wall = counted(eval_, configs, bindings, save_path, 1)
         del trainer
         want = 0 if tag.endswith("eager") else 3 * rec_batches
         if (fwd, bwd) != (want, 0):
@@ -846,7 +914,7 @@ def eval_phase(run_dir):
     od = os.path.join(TRAIN_RUNS, "rec_ondevice")
     trainer, fwd, _, wall = counted(eval_, ["configs/recording.gin"], kernel + [
         "evalution_loop.ondevice_rescale=True", f"evalution_loop.ondevice_rescale_training_path='{run_dir}'",
-    ], od)
+    ], od, 1)
     del trainer
     if fwd != 3 * rec_batches:
         raise AssertionError(f"record_ondevice: {fwd} forward launches, want {3 * rec_batches}")
@@ -868,7 +936,7 @@ def eval_phase(run_dir):
     trainer, fwd, bwd, wall = counted(eval_, ["configs/eval.gin"], kernel + [
         f"MMTM_MVCNN.mmtm_rescale_eval_file_path='{os.path.join(run_dir, 'eval_history_batch')}'",
         f"MMTM_MVCNN.mmtm_rescale_training_file_path='{run_dir}'",
-    ], off)
+    ], off, 1)
     if (fwd, bwd) != (0, 0):
         raise AssertionError(f"flow_off: kernel launches (forward, backward) = {(fwd, bwd)}, want (0, 0)")
     report["flow_off"] = eval_rate("flow_off", off, N_TRAIN_TEST, fwd, wall)
@@ -919,7 +987,7 @@ def resume_phase():
     guided = ["configs/training_guided.gin"]
     dirs = {tag: os.path.join(TRAIN_RUNS, f"resume_{tag}")
             for tag in ("default_a", "default_b", "straight", "again", "resumed")}
-    runs = {tag: counted(train, guided, TRAIN_BINDINGS, dirs[tag])[0] for tag in ("default_a", "default_b")}
+    runs = {tag: counted(train, guided, TRAIN_BINDINGS, dirs[tag], 3)[0] for tag in ("default_a", "default_b")}
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     restored = {}
@@ -931,14 +999,14 @@ def resume_phase():
 
     try:
         for tag in ("straight", "again"):
-            runs[tag] = counted(train, guided, TRAIN_BINDINGS, dirs[tag])[0]
-        counted(train, guided, TRAIN_BINDINGS[:-1] + ["training_loop.n_epochs=2"], dirs["resumed"])
+            runs[tag] = counted(train, guided, TRAIN_BINDINGS, dirs[tag], 3)[0]
+        counted(train, guided, TRAIN_BINDINGS[:-1] + ["training_loop.n_epochs=2"], dirs["resumed"], 3)
         last = os.path.join(dirs["resumed"], "model_last_epoch.pt")
         saved = torch.load(f"{last}.torch.pt", map_location="cpu", weights_only=True)
         start = checkpoint_state(last)
         Trainer.restore = spy
         runs["resumed"], fwd, bwd, wall = counted(train, guided, TRAIN_BINDINGS + ["training_loop.resume=True"],
-                                                  dirs["resumed"])
+                                                  dirs["resumed"], 3)
     finally:
         Trainer.restore = original
         torch.backends.cudnn.deterministic = deterministic
@@ -979,6 +1047,210 @@ def resume_phase():
             "l2_diff_over_update": worst, "l2_diff_over_update_median": median}
 
 
+# ---- phase 9 helpers -------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def step_log():
+    """Each train step's (step, curated, the decision's curation flag and
+    target) of the runs inside the block, fetched once at its end (no
+    synchronization per step)."""
+    steps = []
+    original = Trainer.train_batch
+
+    def spy(trainer, data, flips, unlock):
+        step = trainer.step
+        out = original(trainer, data, flips, unlock)
+        steps.append((step, out["curated"], out["curation_mode"], out["caring_modality"]))
+        return out
+
+    Trainer.train_batch = spy
+    try:
+        yield steps
+    finally:
+        Trainer.train_batch = original
+        steps[:] = [(t, bool(c), bool(m), int(k)) for t, c, m, k in steps]
+
+
+def controller_run(tag, configs, bindings, epochs):
+    """One counted ``train`` run over phase 5's split; checks the launches,
+    the steps, the losses and the artifacts.  Returns (report, per-step log,
+    history rows)."""
+    save_path = os.path.join(TRAIN_RUNS, tag)
+    with step_log() as steps:
+        trainer, fwd, bwd, wall = counted(train, configs, bindings + [f"training_loop.n_epochs={epochs + 1}"],
+                                          save_path, 3)
+    with open(os.path.join(save_path, "history.csv")) as f:
+        rows = list(csv.DictReader(f))
+    per_epoch = N_TRAIN // BATCH
+    eval_batches = epochs * (-(-N_VAL // BATCH) + -(-N_TRAIN_TEST // BATCH))
+    want = (3 * (trainer.step + eval_batches), 3 * trainer.step)
+    log(f"[controllers {tag}] {len(rows)} epochs, {trainer.step} steps, {trainer.curated_steps} curated, "
+        f"{wall:.1f}s | launches forward {fwd}, backward {bwd} (want {want}) | steps (step, curated, decision, "
+        f"target) {steps}")
+    if (fwd, bwd) != want or trainer.step != epochs * per_epoch or len(rows) != epochs:
+        raise AssertionError(f"{tag}: launches {(fwd, bwd)}, want {want}; {trainer.step} steps, {len(rows)} epochs")
+    if [t for t, *_ in steps] != list(range(trainer.step)):
+        raise AssertionError(f"{tag}: logged steps {[t for t, *_ in steps]}")
+    for r in rows:
+        losses = [float(r[k]) for k in ("loss", "val_loss", "test_loss")]
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"{tag}: epoch {r['epoch']} losses {losses}")
+    for name in ("history.csv", "history.pickle", "model_best_val.pt", "model_last_epoch.pt",
+                 "model_best_val.pt.torch.pt", "model_last_epoch.pt.torch.pt"):
+        if not os.path.exists(os.path.join(save_path, name)):
+            raise AssertionError(f"{tag}: {name} was not written")
+    report = {"fwd_launches": fwd, "bwd_launches": bwd, "steps": trainer.step, "curated_steps": trainer.curated_steps,
+              "decisions": [m for _, _, m, _ in steps], "wall_s": wall}
+    del trainer
+    torch.cuda.empty_cache()
+    return report, steps, rows
+
+
+def check_steps(tag, steps, decisions, curated):
+    """Each step's (decision, target) and whether its forward curated."""
+    got = [(m, k) for _, _, m, k in steps]
+    if got != decisions or [c for _, c, _, _ in steps] != curated:
+        raise AssertionError(f"{tag}: (decision, target) per step {got}, want {decisions}; curated "
+                             f"{[c for _, c, _, _ in steps]}, want {curated}")
+
+
+def weakest_targets(rows, min_gap=None):
+    """The target each epoch's end designates from its validation accuracies:
+    the argmin, or (adaptive, with ``min_gap``) -1 unless it trails the other
+    modality by more than ``min_gap`` points."""
+    out = []
+    for r in rows:
+        accs = [float(r["val_acc_modal_0"]), float(r["val_acc_modal_1"])]
+        weakest = int(np.argmin(accs))
+        gap = accs[1 - weakest] - accs[weakest]
+        out.append(weakest if min_gap is None or gap > min_gap else -1)
+    return out
+
+
+def controller_phase():
+    """Phase 9: the random, weakest and adaptive-weakest controllers through
+    the ``train`` entry at full width on phase 5's split (float32, kernels)."""
+    per_epoch = N_TRAIN // BATCH
+    report = {}
+
+    # random: unlocked from epoch 2; each decision the draw of (seed, step);
+    # a step's forward takes the decision of the step before
+    report["random"], steps, _ = controller_run("random", ["configs/training_random.gin"], TRAIN_BINDINGS[:-1], 3)
+    gen = torch.Generator(device="cuda")
+    draws = [int(random_draw(gen, SEED, t, 2)) for t in range(3 * per_epoch)]
+    decisions = [(t >= per_epoch and d != 0, (1 if d == 1 else 0) if t >= per_epoch and d != 0 else 0)
+                 for t, d in enumerate(draws)]
+    check_steps("random", steps, decisions, [False] + [m for m, _ in decisions[:-1]])
+    report["random"]["draws"] = draws
+
+    # weakest (unlocked from epoch 1, 5 of every 10 steps): no target in epoch
+    # 1; the eval passes turn curation off, so epoch 2's first forward is not
+    # curated
+    report["weakest"], steps, rows = controller_run("weakest", ["configs/training_weakest.gin"],
+                                                    TRAIN_BINDINGS[:-1], 2)
+    target = weakest_targets(rows)[0]
+    decisions = [(False, -1)] * per_epoch + [(t % 10 < 5, target) for t in range(per_epoch, 2 * per_epoch)]
+    curated = [False] * (per_epoch + 1) + [m for m, _ in decisions[per_epoch:-1]]
+    check_steps("weakest", steps, decisions, curated)
+    if not any(curated):
+        raise AssertionError("weakest: no step of epoch 2 was curated")
+    report["weakest"]["target"] = target
+
+    # adaptive-weakest in place of the guided callback, windows of 1 step,
+    # any gap opens the gate: enter, leave, enter again while the target
+    # holds; three designations (equal accuracies close the gate)
+    window = 1
+    report["adaptive_weakest"], steps, rows = controller_run("adaptive_weakest", ["configs/training_guided.gin"], [
+        *TRAIN_BINDINGS[:-1],
+        "train.callbacks=['CompletedStopping', 'ReduceLROnPlateau_PyTorch', 'Bias_Mitigation_AdaptiveWeakest']",
+        "Bias_Mitigation_AdaptiveWeakest.starting_epoch=1",
+        f"Bias_Mitigation_AdaptiveWeakest.curation_windowsize={window}",
+        "Bias_Mitigation_AdaptiveWeakest.min_gap=0.0",
+    ], 4)
+    targets = [-1] + weakest_targets(rows, min_gap=0.0)[:-1]  # the target each epoch runs with
+    decisions, curated = [], []
+    for epoch_target in targets:
+        mode, count = False, 0  # the eval passes leave curation off
+        for _ in range(per_epoch):
+            curated.append(mode)
+            if mode:
+                count += 1
+                mode = count != window
+            elif epoch_target >= 0:
+                mode, count = True, 0
+            decisions.append((mode, epoch_target))
+    check_steps("adaptive_weakest", steps, decisions, curated)
+    if not any(curated):
+        raise AssertionError(f"adaptive_weakest: no window opened (targets {targets})")
+    report["adaptive_weakest"]["targets"] = targets
+    return report
+
+
+# ---- phase 10 helpers ------------------------------------------------------------
+
+
+CACHE_BINDINGS = [
+    "MMTM_mitigate.use_pallas=True",
+    f"train.batch_size={BATCH}",
+    f"get_mvdcndata.root_dir='{CACHE_DATA}'",
+    "get_mvdcndata.specific_views=[0, 1]",
+    f"get_mvdcndata.valid_size={(N_CACHE_VAL + 0.5) / (N_CACHE_TRAIN + N_CACHE_VAL)!r}",
+    "training_loop.n_epochs=4",
+]
+
+
+def cache_phase():
+    """Phase 10: the guided ``train`` entry streamed and cached, in turns
+    (streamed, cached) for each dtype, cuDNN deterministic: the same
+    history and the same bits; ``train_samples_per_sec`` of epochs 2-3."""
+    t0 = time.time()
+    make_synthetic_modelnet(CACHE_DATA, n_train=N_CACHE_TRAIN + N_CACHE_VAL, n_test=N_CACHE_TEST, num_views=2,
+                            image_size=224, nclasses=40, seed=2)
+    log(f"[cache] synthetic split of {N_CACHE_TRAIN + N_CACHE_VAL + N_CACHE_TEST} samples in {time.time() - t0:.1f}s")
+    steps = 3 * (N_CACHE_TRAIN // BATCH)
+    eval_batches = 3 * (-(-N_CACHE_VAL // BATCH) + -(-N_CACHE_TEST // BATCH))
+    want = (3 * (steps + eval_batches), 3 * steps)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    report = {}
+    try:
+        for dtype, configs in (("f32", ["configs/training_guided.gin"]),
+                               ("bf16", ["configs/training_guided.gin", "configs/tpu_bf16.gin"])):
+            runs = {}
+            for path, extra, resident in (("streamed", ["get_mvdcndata.device_cache=False"], 0), ("cached", [], 3)):
+                tag = f"{dtype}_{path}"
+                save_path = os.path.join(CACHE_RUNS, tag)
+                trainer, fwd, bwd, wall = counted(train, configs, CACHE_BINDINGS + extra, save_path, resident)
+                with open(os.path.join(save_path, "history.csv")) as f:
+                    rows = list(csv.DictReader(f))
+                rates = [float(r["train_samples_per_sec"]) for r in rows]
+                log(f"[cache {tag}] {trainer.step} steps, {wall:.1f}s | launches {fwd} / {bwd} (want {want}) | "
+                    f"train samples/s per epoch {rates}")
+                if (fwd, bwd) != want or trainer.step != steps:
+                    raise AssertionError(f"{tag}: launches {(fwd, bwd)}, want {want}; {trainer.step} steps")
+                runs[path] = (trainer, rows)
+                report[tag] = {"train_samples_per_s": rates, "epochs_2_3": rates[1:3], "wall_s": wall,
+                               "fwd_launches": fwd, "bwd_launches": bwd}
+            (cached, c_rows), (streamed, s_rows) = runs["cached"], runs["streamed"]
+            clocks = ("time", "epoch_begin_time", "train_samples_per_sec")
+            if [{k: v for k, v in r.items() if k not in clocks} for r in c_rows] != [
+                    {k: v for k, v in r.items() if k not in clocks} for r in s_rows]:
+                raise AssertionError(f"{dtype}: the cached run's history differs from the streamed run's")
+            got, ref = cached.model.state_dict(), streamed.model.state_dict()
+            differ = [k for k, v in ref.items() if not torch.equal(got[k], v)]
+            if differ:
+                raise AssertionError(f"{dtype}: cached vs streamed, {len(differ)} tensors differ: {differ[:5]}")
+            log(f"[cache] {dtype}: cached and streamed runs bit-identical in all {len(ref)} state_dict entries; "
+                f"train samples/s epochs 2-3, streamed {report[dtype + '_streamed']['epochs_2_3']}, cached "
+                f"{report[dtype + '_cached']['epochs_2_3']} on {smi_line()}")
+            del runs, cached, streamed, got, ref
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    return report
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs an NVIDIA GPU", file=sys.stderr)
@@ -998,27 +1270,44 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    timing = kernel_phase()
+    seconds = {}
+
+    def phase(name, fn, *args):
+        t0 = time.time()
+        out = fn(*args)
+        seconds[name] = round(time.time() - t0, 1)
+        log(f"[time] phase {name}: {seconds[name]}s")
+        return out
+
+    timing = phase("2 forward kernel", kernel_phase)
     try:
-        serving = serving_phase()
+        serving = phase("3 serving", serving_phase)
     finally:
         shutil.rmtree(DATA, ignore_errors=True)
         if os.path.exists(CKPT):
             os.remove(CKPT)
     log("[serving] " + json.dumps(serving))
-    bwd_timing = backward_kernel_phase()
+    bwd_timing = phase("4 backward kernel", backward_kernel_phase)
     try:
-        training = training_phase()
+        training = phase("5 training", training_phase)
         log("[train] " + json.dumps(training))
-        step_err = step_agreement()
-        rates = throughput_phase()
-        evaluation = eval_phase(os.path.join(TRAIN_RUNS, "f32"))
+        step_err = phase("6a step agreement", step_agreement)
+        rates = phase("6b step throughput", throughput_phase)
+        evaluation = phase("7 eval", eval_phase, os.path.join(TRAIN_RUNS, "f32"))
         log("[eval] " + json.dumps(evaluation))
-        resumed = resume_phase()
+        resumed = phase("8 resume", resume_phase)
         log("[resume] " + json.dumps(resumed))
+        controllers = phase("9 controllers", controller_phase)
+        log("[controllers] " + json.dumps(controllers))
     finally:
         shutil.rmtree(TRAIN_DATA, ignore_errors=True)
         shutil.rmtree(TRAIN_RUNS, ignore_errors=True)
+    try:
+        cached = phase("10 cached vs streamed", cache_phase)
+        log("[cache] " + json.dumps(cached))
+    finally:
+        shutil.rmtree(CACHE_DATA, ignore_errors=True)
+        shutil.rmtree(CACHE_RUNS, ignore_errors=True)
 
     def bound_by(report):
         return "bytes" if all(s["bound_by"] == "bytes" for s in report["sites"].values()) else "operations"
@@ -1043,6 +1332,9 @@ def main() -> int:
         # the eval path: the f32 recording pass, and the flow-off pass (no kernel)
         "launches_eval": evaluation["record_f32"]["launches"],
         "launches_eval_flow_off": evaluation["flow_off"]["launches"],
+        # the other controllers (phase 9) and the cached/streamed runs (phase 10)
+        **{f"launches_{k}": v["fwd_launches"] for k, v in controllers.items()},
+        **{f"launches_{k}": v["fwd_launches"] for k, v in cached.items()},
         "max_abs_err": f32["max_abs_err"],
         "max_abs_err_bf16": bf16["max_abs_err"],
         # float32, the configuration's dtype: one forward's three fusion sites at B=128
@@ -1064,6 +1356,8 @@ def main() -> int:
         "cuda_launches_per_call": cuda_launches_per_call(bf32, bbf16),
         "launches": training["f32"]["bwd_launches"],
         "launches_bf16": training["bf16"]["bwd_launches"],
+        **{f"launches_{k}": v["bwd_launches"] for k, v in controllers.items()},
+        **{f"launches_{k}": v["bwd_launches"] for k, v in cached.items()},
         "max_abs_err": bf32["max_abs_err"],
         "max_abs_err_bf16": bbf16["max_abs_err"],
         # float32: one step's three fusion sites at B=128
@@ -1077,7 +1371,7 @@ def main() -> int:
         "sites": {str(dt)[6:]: t["sites"] for dt, t in bwd_timing.items()},
     }]
     log("[step] " + json.dumps({"l2_diff_over_update": step_err, "samples_per_s": rates}))
-    log(f"[time] {time.time() - t_start:.1f}s in all")
+    log(f"[time] {time.time() - t_start:.1f}s in all; by phase {json.dumps(seconds)}")
     print(json.dumps({"kernels": kernels}))
     print(smi_line())
     print(json.dumps({

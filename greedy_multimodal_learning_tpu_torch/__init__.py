@@ -6,11 +6,14 @@ package's so each module's counterpart is easy to find.  The JAX package is
 the reference the port's tests hold it against; the port itself imports
 ``torch`` and never ``jax`` nor anything of the JAX package.
 
-Ported so far: serving (``predict_``), guided training with resume
-(``train``) and the conditional-utilization eval (``eval_``: the recording
-pass and the flow-off pass, ``analysis/``), on the two-tower ResNet-18 +
-MMTM model, with the fused MMTM gating forward and backward as hand-written
-CUDA kernels (``ops/mmtm_gating.py``, ``csrc/``).
+Ported so far: serving (``predict_``), training with resume under the
+guided, random, weakest and adaptive-weakest controllers (``train``) and
+the conditional-utilization eval (``eval_``: the recording pass and the
+flow-off pass, ``analysis/``), on the two-tower ResNet-18 + MMTM model,
+reading each split from a corpus resident on the device
+(``data/pipeline.py``), with the fused MMTM gating forward and backward as
+hand-written CUDA kernels (``ops/mmtm_gating.py``, ``csrc/``) and the host
+data helpers of ``csrc/fastio.cc``.
 """
 
 __version__ = "0.1.0"

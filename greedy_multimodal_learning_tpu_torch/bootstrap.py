@@ -8,15 +8,16 @@ import torch
 from .models.layers import init_parameters
 
 
-def build_model_and_loaders(model_name: str, batch_size: int):
+def build_model_and_loaders(model_name: str, batch_size: int, device):
     """Model-family dispatch.  This slice ports 'MMTM_MVCNN' (ModelNet40
-    multiview).  Returns (model, (train, val, test) loaders)."""
+    multiview).  Returns (model, (train, val, test) loaders), whose corpus,
+    when cached, lives on ``device``."""
     if model_name != "MMTM_MVCNN":
         raise NotImplementedError(f"model {model_name!r} is not ported yet; the port has 'MMTM_MVCNN'")
     from .data import get_mvdcndata
     from .models import build_model_from_config
 
-    return build_model_from_config(), get_mvdcndata(batch_size=batch_size)
+    return build_model_from_config(), get_mvdcndata(batch_size=batch_size, device=device)
 
 
 def select_split(loaders, name: str):

@@ -4,11 +4,13 @@
   lists ({classname, model}) and ``classnames``,
 * each sample is ``root/<split>/<model>.npy``, a (num_views, H, W, C) uint8
   stack; files written with ``torch.save`` despite the suffix are read too,
-* ``specific_view`` selects a subset of views,
+* ``specific_view`` selects a subset of views (``csrc/fastio.cc``'s view
+  gather),
 * the train/val split is the seed-10 ``random.Random`` shuffle, exactly.
 
 The source yields raw uint8 host arrays; normalization runs on the device
-(``data/transforms.py``).
+(``data/transforms.py``).  :func:`get_mvdcndata` puts each split's corpus
+on the device by default (``data/pipeline.py::DeviceCachePipeline``).
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from typing import Optional, Sequence
 import numpy as np
 
 from .. import config as cfg
+from ..utils.native import gather_views_u8
 
 logger = logging.getLogger(__name__)
 
@@ -89,7 +92,7 @@ class MultiviewModelNet:
         class_id = self.classnames.index(sample["classname"])
         imgs = load_view_stack(self.root_dir / self.split / f"{sample['model']}.npy")
         if self.specific_view is not None:
-            imgs = np.ascontiguousarray(imgs[self.specific_view])
+            imgs = gather_views_u8(imgs, self.specific_view)
         item = (idx, imgs, class_id)
         if self._cache is not None:
             self._cache[idx] = item
@@ -124,11 +127,18 @@ def get_mvdcndata(
     use_cuda=True,
     cache=True,
     device_cache="auto",
+    device="cpu",
 ):
-    """Loader factory with the JAX package's gin surface.  Returns (train,
-    valid, test) :class:`~.pipeline.BatchPipeline` iterators, single
-    process.  ``device_cache`` is accepted and has no effect yet."""
-    from .pipeline import BatchPipeline
+    """Loader factory with the JAX package's gin surface
+    (``modelnet.py:128-176``).  Returns (train, valid, test) batch
+    iterators, single process.
+
+    ``device_cache``: True / False / "auto" (the default; as True): upload
+    each split's uint8 corpus to ``device`` once and gather every batch
+    there (:class:`~.pipeline.DeviceCachePipeline`; a corpus over the memory
+    budget streams instead, with a warning); False streams host batches.
+    The entries pass their own device."""
+    from .pipeline import BatchPipeline, wrap_device_cache
 
     if root_dir is None:
         root_dir = os.environ.get("DATA_DIR", ".")
@@ -142,4 +152,4 @@ def get_mvdcndata(
     train_loader = BatchPipeline(train_ds, training_idx, batch_size, shuffle=True, seed=seed)
     valid_loader = BatchPipeline(train_ds, valid_idx, batch_size, shuffle=False)
     test_loader = BatchPipeline(test_ds, range(len(test_ds)), batch_size, shuffle=False)
-    return train_loader, valid_loader, test_loader
+    return tuple(wrap_device_cache(p, device_cache, device) for p in (train_loader, valid_loader, test_loader))

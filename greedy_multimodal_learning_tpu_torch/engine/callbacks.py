@@ -1,14 +1,15 @@
 """Callbacks (``greedy_multimodal_learning_tpu/engine/callbacks.py``): the
-hook set, the guided controller's callback, stopping, the learning-rate
-plateau, checkpointing and progress lines, with the JAX package's gin names.
+hook set, the four balancing controllers' callbacks (guided, random,
+weakest, adaptive-weakest), stopping, the learning-rate plateau,
+checkpointing and progress lines, with the JAX package's gin names.
 
-The guided controller's arithmetic runs inside the train step
-(``engine/controller.py``); its callback carries the configuration and
-unlocks the controller at ``starting_epoch``.  On resume, ``training_loop``
-replays the history into the stopping and plateau callbacks (``replay``)
-and sets the best-val checkpoint's ``best``.  The random, weakest and
-adaptive controllers are not ported yet: their names raise in
-``entries.train``.
+The controllers' arithmetic runs inside the train step
+(``engine/controller.py``); each callback carries its configuration and
+unlocks the controller at ``starting_epoch``, and the weakest controllers'
+callbacks designate the target after each epoch.  On resume,
+``training_loop`` replays the history into the stopping and plateau
+callbacks (``replay``) and sets the best-val checkpoint's ``best``; the
+controller state, designated target included, comes back from the sidecar.
 """
 
 from __future__ import annotations
@@ -128,8 +129,27 @@ class Callback:
         pass
 
 
+class _BalancingController(Callback):
+    """A controller's callback: names its kind and configuration for the
+    trainer, resets the controller at train begin (a resume keeps the
+    restored state) and unlocks it at ``starting_epoch``."""
+
+    controller_kind = "none"
+    starting_epoch = 1
+
+    def controller_config(self):
+        return {}
+
+    def on_train_begin(self, logs):
+        self.model_pytoune.reset_controller()
+
+    def on_epoch_begin(self, epoch, logs):
+        if epoch >= self.starting_epoch:
+            self.model_pytoune.unlock_controller()
+
+
 @cfg.configurable
-class Bias_Mitigation_Strong(Callback):
+class Bias_Mitigation_Strong(_BalancingController):
     """Guided balancing (the paper's algorithm), ``callbacks.py:201-233``."""
 
     controller_kind = "guided"
@@ -157,12 +177,144 @@ class Bias_Mitigation_Strong(Callback):
             starting_epoch=self.starting_epoch,
         )
 
-    def on_train_begin(self, logs):
-        self.model_pytoune.reset_controller()
 
-    def on_epoch_begin(self, epoch, logs):
-        if epoch >= self.starting_epoch:
-            self.model_pytoune.unlock_controller()
+@cfg.configurable
+class Bias_Mitigation_Random(_BalancingController):
+    """The random-curation ablation (``callbacks.py:236-252``): each
+    unlocked step curates no modality, modality 1 or modality 0, uniformly
+    (:func:`~.controller.random_update`)."""
+
+    controller_kind = "random"
+
+    def __init__(self, starting_epoch=2):
+        self.starting_epoch = starting_epoch
+
+    def controller_config(self):
+        return dict(starting_epoch=self.starting_epoch)
+
+
+def _check_monitor(monitor):
+    if monitor not in ("val", "train"):
+        raise ValueError(f"monitor must be 'val' or 'train', got {monitor!r}")
+
+
+class _WeakestTarget(_BalancingController):
+    """The weakest controllers' host side: the target starts undesignated
+    (-1) unless a resume restored it, and each epoch's end reads the
+    per-modality accuracies, of the validation split with ``monitor='val'``
+    when the logs have them, else of the train split."""
+
+    def on_train_begin(self, logs):
+        resumed = self.model_pytoune._skip_next_controller_reset
+        super().on_train_begin(logs)
+        if not resumed:
+            self.model_pytoune.set_controller_target(-1)
+
+    def _modal_accs(self, logs):
+        """The per-modality accuracies, or None when the logs lack one."""
+        prefix = "val_" if self.monitor == "val" and "val_acc_modal_0" in logs else ""
+        accs = [logs.get(f"{prefix}acc_modal_{i}") for i in range(self.model_pytoune.nummodalities)]
+        return None if any(a is None for a in accs) else accs
+
+
+@cfg.configurable
+class Bias_Mitigation_Weakest(_WeakestTarget):
+    """Weakest-modality curation (``callbacks.py:255-330``; the JAX
+    package's extension, no reference counterpart): after each epoch the
+    modality with the lowest per-modality accuracy becomes the target, and
+    the device curates it ``curation_windowsize`` of every ``duty_period``
+    unlocked steps (:func:`~.controller.weakest_update`)."""
+
+    controller_kind = "weakest"
+
+    def __init__(
+        self,
+        epsilon=0.0,  # accepted for the gin surface; unused
+        curation_windowsize=5,
+        duty_period=10,
+        starting_epoch=2,
+        branchnames=("net_view_0", "net_view_1"),
+        MMTMnames=("visual", "skeleton"),
+        monitor="val",
+    ):
+        if duty_period < 1 or curation_windowsize < 1:
+            raise ValueError("duty_period and curation_windowsize must be >= 1")
+        if curation_windowsize >= duty_period:
+            raise ValueError(
+                f"curation_windowsize ({curation_windowsize}) must be smaller than duty_period ({duty_period}) "
+                "— equal or larger would curate every unlocked step"
+            )
+        _check_monitor(monitor)
+        self.curation_windowsize = curation_windowsize
+        self.duty_period = duty_period
+        self.starting_epoch = starting_epoch
+        self.branchnames = list(branchnames)
+        self.MMTMnames = list(MMTMnames)
+        self.monitor = monitor
+
+    def controller_config(self):
+        return dict(
+            curation_windowsize=self.curation_windowsize,
+            duty_period=self.duty_period,
+            branchnames=self.branchnames,
+            mmtm_names=self.MMTMnames,
+            starting_epoch=self.starting_epoch,
+        )
+
+    def on_epoch_end(self, epoch, logs):
+        accs = self._modal_accs(logs)
+        if accs is not None:
+            self.model_pytoune.set_controller_target(int(np.argmin(accs)))
+
+
+@cfg.configurable
+class Bias_Mitigation_AdaptiveWeakest(_WeakestTarget):
+    """Weakest-modality targeting with a gap-gated trigger
+    (``callbacks.py:333-407``; the JAX package's extension): after each
+    epoch the weakest modality becomes the target only while its accuracy
+    trails the others' mean by more than ``min_gap`` points (else -1), and
+    the device curates it in guided-style windows
+    (:func:`~.controller.adaptive_weakest_update`)."""
+
+    controller_kind = "adaptive_weakest"
+
+    def __init__(
+        self,
+        curation_windowsize=5,
+        min_gap=5.0,
+        starting_epoch=2,
+        branchnames=("net_view_0", "net_view_1"),
+        MMTMnames=("visual", "skeleton"),
+        monitor="val",
+    ):
+        if curation_windowsize < 1:
+            raise ValueError("curation_windowsize must be >= 1")
+        if min_gap < 0:
+            raise ValueError("min_gap must be >= 0 (accuracy points)")
+        _check_monitor(monitor)
+        self.curation_windowsize = curation_windowsize
+        self.min_gap = min_gap
+        self.starting_epoch = starting_epoch
+        self.branchnames = list(branchnames)
+        self.MMTMnames = list(MMTMnames)
+        self.monitor = monitor
+
+    def controller_config(self):
+        return dict(
+            curation_windowsize=self.curation_windowsize,
+            branchnames=self.branchnames,
+            mmtm_names=self.MMTMnames,
+            starting_epoch=self.starting_epoch,
+        )
+
+    def on_epoch_end(self, epoch, logs):
+        accs = self._modal_accs(logs)
+        if accs is None:
+            return
+        n = len(accs)
+        weakest = int(np.argmin(accs))
+        gap = (sum(accs) - accs[weakest]) / (n - 1) - accs[weakest]
+        self.model_pytoune.set_controller_target(weakest if gap > self.min_gap else -1)
 
 
 @cfg.configurable

@@ -5,7 +5,10 @@ size-weighted epoch metrics, callback hooks and the NaN stop, plus serving
 (``predict``).  Step outputs stay on the device and are fetched once per
 pass; a NaN loss stops training after the epoch, as in the JAX package.
 The controller state lives on the device and enters each step as tensors;
-callbacks flip host latches (``unlock_controller``).
+callbacks flip host latches (``unlock_controller``) and write the weakest
+controllers' target on the device (``set_controller_target``).  Batches
+come as host numpy arrays (streamed) or as tensors already on the device
+(``DeviceCachePipeline``), which pass through without a copy.
 
 A trainer built with ``mmtm_off`` runs every eval and predict forward with
 the cross-modal flow cut (``average_squeezemaps``, turned into device
@@ -20,7 +23,7 @@ Not ported: the scanned eval (it served the TPU's remote link),
 
 from __future__ import annotations
 
-import functools
+import dataclasses
 import itertools
 import logging
 import timeit
@@ -33,8 +36,8 @@ from . import checkpoint as ckpt
 from ..data.transforms import draw_flips, preprocess
 from .bdr import GroupReducer
 from .callbacks import CallbackList, ProgressionCallback, ValidationProgressionCallback
-from .controller import ControllerState, guided_update, init_controller_state, null_update
-from .steps import RECORD_KEYS, eval_step, train_step
+from .controller import ControllerState, init_controller_state, random_draw
+from .steps import RECORD_KEYS, eval_step, make_controller_update, train_step
 from .train_state import get_learning_rate, set_learning_rate
 
 logger = logging.getLogger(__name__)
@@ -95,6 +98,14 @@ def _fetch_records(per_batch, sizes):
     return out
 
 
+def _on_device(value, device) -> torch.Tensor:
+    """A batch entry as a tensor on ``device``: a tensor already there passes
+    through without a copy; a host numpy array is copied."""
+    if not isinstance(value, torch.Tensor):
+        value = torch.from_numpy(value)
+    return value.to(device, non_blocking=True)
+
+
 def _device_maps(average_squeezemaps, device):
     """The analysis pipeline's 4-slot maps (None or a list of per-view
     arrays a slot) as float32 tensors on ``device``."""
@@ -134,6 +145,7 @@ class Trainer:
         self.curated_steps = 0
         self._seed = int(seed)
         self._flip_gen = torch.Generator(device=self.device)
+        self._draw_gen = torch.Generator(device=self.device)
         self.mmtm_off = bool(mmtm_off)
         self.average_squeezemaps = _device_maps(average_squeezemaps, self.device)
         if self.mmtm_off and self.average_squeezemaps is None:
@@ -144,24 +156,22 @@ class Trainer:
         self._skip_next_controller_reset = False
         if optimizer is None:
             return
-        if controller_kind not in ("none", "guided"):
-            raise NotImplementedError(f"the {controller_kind!r} controller is not ported yet (see ROADMAP.md)")
+        if controller_kind not in ("none", "guided", "random", "weakest", "adaptive_weakest"):
+            raise ValueError(f"unknown controller kind {controller_kind!r}")
         branchnames = self.controller_config.get("branchnames") or [f"net_view_{i}" for i in range(nummodalities)]
         mmtm_names = self.controller_config.get("mmtm_names") or list(model.modality_names)
         self._reducer = GroupReducer([n for n, _ in model.named_parameters()], branchnames, mmtm_names)
-        if controller_kind == "guided" and self._reducer.empty_groups:
+        if controller_kind in ("guided", "weakest", "adaptive_weakest") and self._reducer.empty_groups:
+            # an empty group makes its BDR ratio 0/0: curation (guided) or the
+            # d_BDR telemetry (weakest) would be NaN for the whole run
             raise ValueError(
-                f"guided controller: no parameters matched group(s) {self._reducer.empty_groups}; "
+                f"{controller_kind} controller: no parameters matched group(s) {self._reducer.empty_groups}; "
                 "check branchnames/mmtm_names against the parameter names"
             )
-        if controller_kind == "guided":
-            self._controller_update = functools.partial(
-                guided_update,
-                epsilon=self.controller_config["epsilon"],
-                curation_windowsize=self.controller_config["curation_windowsize"],
-            )
-        else:
-            self._controller_update = null_update
+        self._controller_update = make_controller_update(
+            controller_kind, nummodalities, draw=self.controller_draw,
+            **{k: v for k, v in self.controller_config.items() if k in ("epsilon", "curation_windowsize", "duty_period")},
+        )
 
     # --- handles used by callbacks ---
 
@@ -175,6 +185,18 @@ class Trainer:
 
     def unlock_controller(self):
         self._unlock = True
+
+    def set_controller_target(self, modality: int):
+        """The weakest controllers' host-designated target, written into
+        ``caring_modality`` on the device (-1: none).  A fill on the device,
+        unconditional: reading the flag first would wait for the step."""
+        self.ctrl = dataclasses.replace(self.ctrl, caring_modality=torch.full(
+            (), int(modality), dtype=self.ctrl.caring_modality.dtype, device=self.device))
+
+    def controller_draw(self) -> torch.Tensor:
+        """The random controller's draw for the current step, a function of
+        (seed, step) drawn on the device."""
+        return random_draw(self._draw_gen, self._seed, self.step, self.nummodalities)
 
     def get_lr(self):
         return get_learning_rate(self.optimizer)
@@ -202,7 +224,7 @@ class Trainer:
     # --- epoch loops ---
 
     def _to_device(self, batch):
-        return {k: torch.from_numpy(batch[k]).to(self.device, non_blocking=True) for k in ("images", "labels", "mask")}
+        return {k: _on_device(batch[k], self.device) for k in ("images", "labels", "mask")}
 
     def train_flips(self, batch_size: int, views: int) -> torch.Tensor:
         """The (B, V) flips of the next train step, a function of (seed,
@@ -272,6 +294,14 @@ class Trainer:
         updated in the buffers."""
         if generator is None:
             return {}
+        if self.controller_kind in ("weakest", "adaptive_weakest"):
+            # Guided and random thread the live flags into the eval forwards,
+            # as the reference does.  The weakest controllers' passes run
+            # with curation off (a window could otherwise end an epoch
+            # mid-curation and skew the per-modality accuracies their next
+            # designation reads); the next train step recomputes the flag
+            # (``framework.py:370-386``).
+            self.ctrl = dataclasses.replace(self.ctrl, curation_mode=torch.zeros_like(self.ctrl.curation_mode))
         if steps is None:
             steps = len(generator)
         progress = ValidationProgressionCallback(phase=phase, steps=steps, metrics_names=["loss"] + self.metrics_names)
@@ -414,8 +444,8 @@ class Trainer:
         the trainer has ``mmtm_off``, as its eval passes run.  Returns (new
         MMTM state as ``{"mmtm2": {buffer: tensor}, ...}``, [per-view
         logits])."""
-        images = torch.from_numpy(batch["images"]).to(self.device)
-        mask = torch.from_numpy(batch["mask"]).to(self.device)
+        images = _on_device(batch["images"], self.device)
+        mask = _on_device(batch["mask"], self.device)
         x = preprocess(images, train=False, dtype=self.model.dtype)
         mmtm_state = {}
         _, logits, _, _ = self.model(x, valid_mask=mask, mmtm_state=mmtm_state, mmtm_off=self.mmtm_off,

@@ -1,4 +1,5 @@
-"""The train step and the eval step (``greedy_multimodal_learning_tpu/engine/steps.py:87-145,152-224``).
+"""The train step, the eval step and the controller dispatch
+(``greedy_multimodal_learning_tpu/engine/steps.py:43-65,87-145,152-224``).
 
 One train step, in the JAX package's order:
 
@@ -23,17 +24,44 @@ here they stay separate tensors, fetched once a pass by the trainer.
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+import functools
+from typing import Callable, Dict, Optional
 
 import torch
 
 from ..data.transforms import preprocess
 from .bdr import GroupReducer
-from .controller import ControllerState
+from .controller import (
+    ControllerState,
+    adaptive_weakest_update,
+    guided_update,
+    null_update,
+    random_update,
+    weakest_update,
+)
 from .metrics import blend_and_per_view_acc, blend_loss
 
 
 RECORD_KEYS = ("mmtmscales_list", "squeezedmaps_array_list")
+
+
+def make_controller_update(kind: str, num_modalities: int, *, draw: Optional[Callable[[], torch.Tensor]] = None,
+                           **kwargs) -> Callable:
+    """The controller's t -> t+1 update ``(state, gn, wn, unlock) -> state``
+    for ``kind`` (``steps.py:43-65``); ``draw`` gives the random
+    controller its step's draw.  Any other kind keeps curation off."""
+    if kind == "guided":
+        return functools.partial(guided_update, epsilon=kwargs["epsilon"],
+                                 curation_windowsize=kwargs["curation_windowsize"])
+    if kind == "random":
+        return lambda state, gn, wn, unlock: random_update(state, gn, wn, unlock, draw(),
+                                                          num_modalities=num_modalities)
+    if kind == "weakest":
+        return functools.partial(weakest_update, curation_windowsize=kwargs["curation_windowsize"],
+                                 duty_period=kwargs["duty_period"])
+    if kind == "adaptive_weakest":
+        return functools.partial(adaptive_weakest_update, curation_windowsize=kwargs["curation_windowsize"])
+    return null_update
 
 
 def _step_outputs(logits, labels, mask, loss):
@@ -63,7 +91,7 @@ def train_step(
     flips: torch.Tensor,
     unlock: torch.Tensor,
 ):
-    """One guided training step on ``batch`` (device tensors: uint8
+    """One training step on ``batch`` (device tensors: uint8
     ``images`` (B, V, H, W, C), ``labels``, ``mask``) with the (B, V) bool
     ``flips``.  Returns (new controller state, outputs)."""
     x = preprocess(batch["images"], train=True, flip=flips, dtype=model.dtype)

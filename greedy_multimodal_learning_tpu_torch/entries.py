@@ -17,13 +17,13 @@ from .engine import evalution_loop, make_optimizer, training_loop
 
 logger = logging.getLogger(__name__)
 
-# The callbacks train.callbacks and eval_.callbacks may name; the JAX package's other
-# controllers are not ported yet.
+# The callbacks train.callbacks and eval_.callbacks may name.
 CALLBACKS = {
     name: getattr(avail_callbacks, name)
-    for name in ("Bias_Mitigation_Strong", "CompletedStopping", "ReduceLROnPlateau_PyTorch", "ProgressionCallback")
+    for name in ("Bias_Mitigation_Strong", "Bias_Mitigation_Random", "Bias_Mitigation_Weakest",
+                 "Bias_Mitigation_AdaptiveWeakest", "CompletedStopping", "ReduceLROnPlateau_PyTorch",
+                 "ProgressionCallback")
 }
-NOT_PORTED = ("Bias_Mitigation_Random", "Bias_Mitigation_Weakest", "Bias_Mitigation_AdaptiveWeakest")
 
 
 def set_matmul_precision(precision):
@@ -41,8 +41,6 @@ def construct_callbacks(names, where="train.callbacks"):
     """Callbacks by name; an unknown name raises KeyError (``entries.py:60-65``)."""
     out = []
     for name in names:
-        if name in NOT_PORTED:
-            raise NotImplementedError(f"callback {name!r} (its controller) is not ported yet (see ROADMAP.md)")
         if name not in CALLBACKS:
             raise KeyError(f"Unknown callback {name!r} in {where}")
         out.append(CALLBACKS[name]())
@@ -57,7 +55,7 @@ def train(save_path, wd=0.0, lr=0.1, momentum=0.0, batch_size=8, callbacks=(), s
     :class:`~.engine.framework.Trainer`."""
     device = resolve_device(device)
     set_matmul_precision(matmul_precision)
-    net, (train_loader, valid_loader, test_loader) = build_model_and_loaders(model, batch_size)
+    net, (train_loader, valid_loader, test_loader) = build_model_and_loaders(model, batch_size, device)
     custom = construct_callbacks(callbacks)
     net = init_model(net, seed, device)
     optimizer = make_optimizer(net.parameters(), lr=lr, momentum=momentum, weight_decay=wd)
@@ -92,7 +90,7 @@ def eval_(save_path, target_data_split="test", pretrained_weights_path=None, bat
     device = resolve_device(device)
     set_matmul_precision(matmul_precision)
     model_scope = model  # gin scope of the model family's bindings
-    net, loaders = build_model_and_loaders(model, batch_size)
+    net, loaders = build_model_and_loaders(model, batch_size, device)
     target = select_split(loaders, target_data_split)
 
     mmtm_off = bool(cfg.query(model_scope, "mmtm_off", False))

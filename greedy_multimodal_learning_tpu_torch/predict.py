@@ -41,7 +41,7 @@ def predict_(
     if fold_bn:
         raise NotImplementedError("predict_.fold_bn is not ported yet (see ROADMAP.md)")
     device = resolve_device(device)
-    model, loaders = build_model_and_loaders(model, batch_size)
+    model, loaders = build_model_and_loaders(model, batch_size, device)
     target = select_split(loaders, target_data_split)
     model = init_model(model, seed, device)
 

@@ -127,8 +127,10 @@ def test_callbacks_by_name():
         "CompletedStopping", "Bias_Mitigation_Strong"]
     with pytest.raises(KeyError, match="Bias_Mitigation_Strongg"):
         construct_callbacks(["Bias_Mitigation_Strongg"])
-    with pytest.raises(NotImplementedError, match="not ported"):
-        construct_callbacks(["Bias_Mitigation_Random"])
+    controllers = ["Bias_Mitigation_Random", "Bias_Mitigation_Weakest", "Bias_Mitigation_AdaptiveWeakest"]
+    built = construct_callbacks(controllers)
+    assert [type(c).__name__ for c in built] == controllers
+    assert [c.controller_kind for c in built] == ["random", "weakest", "adaptive_weakest"]
 
 
 @pytest.mark.parametrize("binding, match", [
