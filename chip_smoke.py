@@ -25,7 +25,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    kernel's launch count must show every fusion site of every batch; the
    float32 logits must agree with the eager gating path, and a small input
    must agree with the port's CPU forward.  Every entry run (phases 3, 5, 7,
-   8 and 9) reads its data through the device-resident corpus, the
+   8, 9 and 11) reads its data through the device-resident corpus, the
    default: each split it iterates must have its corpus on the card (the
    corpus bytes are logged);
 4. the backward kernels against their plain version at the same shapes and
@@ -84,8 +84,24 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    ``get_mvdcndata.device_cache=False`` and with the default, cuDNN
    deterministic: the same history and bit-identical parameters and
    buffers; ``train_samples_per_sec`` of epochs 2 and 3 of each;
-11. a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line, and last
-   ``{"ok": true, "device": {...}}``.  Each phase's seconds are logged.
+11. the 3-modality 3D-CNN family at full width (three r3d-18 towers, 25
+   classes, RGB + depth + flow clips of 16 frames of 112², B=8) on a
+   synthetic split of 80 train-file clips (64 train, 16 validation) and 16
+   test clips: ``train`` with ``configs/training_3dcnn_guided.gin`` in
+   float32 and bfloat16 (``MMTM_3DCNN.compute_dtype``), two epochs, at least
+   one step curated, and with ``configs/training_3dcnn_random.gin`` (each
+   step's decision the draw of (seed, step) over modes 0..3); ``eval_``
+   with ``configs/recording_3dcnn.gin`` over the whole train file (the
+   pickle nests 3 MMTMs x 3 modalities) and ``configs/eval_3dcnn.gin``
+   (flow off) over the test split, on the float32 run's
+   ``model_best_val.pt``; ``predict_`` with ``model='MMTM_3DCNN'``; a small
+   input (B=2, 4 frames of 32²) on the card against the port's CPU forward.
+   Every run finite, every artifact written, each split resident on the
+   card, and neither gating kernel launched (the family's gating is eager,
+   as in the JAX package); samples/s of each run;
+12. a ``{"kernels": [...]}`` JSON line (with each 3D run's launch counts,
+   all 0), the ``nvidia-smi`` line, and last ``{"ok": true, "device":
+   {...}}``.  Each phase's seconds are logged.
 
 Scratch files go to ``smoke_out/`` in the checkout (git-ignored); the
 synthetic splits, checkpoints, training and eval runs are removed at exit.
@@ -113,11 +129,12 @@ from greedy_multimodal_learning_tpu_torch import config as cfg
 from greedy_multimodal_learning_tpu_torch.analysis import get_rescale_weights
 from greedy_multimodal_learning_tpu_torch.bootstrap import init_model
 from greedy_multimodal_learning_tpu_torch.data.pipeline import DeviceCachePipeline
+from greedy_multimodal_learning_tpu_torch.data.nvgesture import make_synthetic_nvgesture
 from greedy_multimodal_learning_tpu_torch.data.synthetic import make_synthetic_modelnet
-from greedy_multimodal_learning_tpu_torch.engine import Trainer, make_optimizer
+from greedy_multimodal_learning_tpu_torch.engine import Trainer, load_weights, make_optimizer
 from greedy_multimodal_learning_tpu_torch.engine.controller import random_draw
 from greedy_multimodal_learning_tpu_torch.entries import eval_, train
-from greedy_multimodal_learning_tpu_torch.models import MMTMMVCNN
+from greedy_multimodal_learning_tpu_torch.models import MMTM3DCNN, MMTMMVCNN
 from greedy_multimodal_learning_tpu_torch.ops import build as kernel_build
 from greedy_multimodal_learning_tpu_torch.ops.mmtm_gating import (
     cuda_launches,
@@ -138,6 +155,8 @@ TRAIN_DATA = os.path.join(WORK, "train_data")
 TRAIN_RUNS = os.path.join(WORK, "train_runs")
 CACHE_DATA = os.path.join(WORK, "cache_data")
 CACHE_RUNS = os.path.join(WORK, "cache_runs")
+CLIP_DATA = os.path.join(WORK, "clip_data")
+CLIP_RUNS = os.path.join(WORK, "clip_runs")
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM bytes/s and the
 # arithmetic rate for each input type (bf16 at the tensor-core rate, float32
@@ -193,6 +212,13 @@ RESCALE_TOL = (1e-5, 1e-6)  # (rtol, atol): on-device means vs the host's, f32 s
 FUSION_CHANNELS = (128, 256, 512)  # mmtm2..mmtm4
 SEED = 777  # train.seed: the flips' and the random controller's seed
 N_CACHE_TRAIN, N_CACHE_VAL, N_CACHE_TEST = 1024, 128, 128
+# phase 11: the published r3d-18 input (16 frames of 112², Tran et al., CVPR
+# 2018, "A Closer Look at Spatiotemporal Convolutions"), RGB + depth + flow,
+# 25 classes, configs/training_3dcnn_guided.gin's batch of 8; 80 train-file
+# clips (64 train, 16 validation at valid_size 0.2) and 16 test clips
+CLIP_MODALITIES, CLIP_FRAMES, CLIP_SIZE, CLIP_CLASSES, CLIP_BATCH = 3, 16, 112, 25, 8
+N_CLIP_TRAIN_FILE, N_CLIP_TRAIN, N_CLIP_TEST = 80, 64, 16
+CLIP_SMALL = (2, 4, 32)  # (B, frames, size) of the card-vs-CPU check
 
 
 def log(msg):
@@ -381,7 +407,7 @@ def kernel_phase():
     return report
 
 
-# ---- the device-resident corpus (phases 3, 5, 7-10) ---------------------------------
+# ---- the device-resident corpus (phases 3, 5, 7-11) ---------------------------------
 
 
 @contextlib.contextmanager
@@ -442,9 +468,10 @@ def seeded_checkpoint(path, seed=0):
     return model
 
 
-def run_predict(tag, configs, bindings, out_dir):
-    """One ``predict_`` run through the gin surface; returns (out dict,
-    samples/s as predict_ reports it, kernel launches during the run)."""
+def run_predict(tag, configs, bindings, out_dir, n_rows=N_TEST, nclasses=40):
+    """One ``predict_`` run through the gin surface over ``n_rows`` samples of
+    ``nclasses``; returns (out dict, samples/s as predict_ reports it,
+    kernel launches during the run)."""
     cfg.clear_config()
     cfg.parse_config_files_and_bindings([os.path.join(REPO, c) for c in configs], "\n".join(bindings))
     buf = io.StringIO()
@@ -460,10 +487,10 @@ def run_predict(tag, configs, bindings, out_dir):
     rate = float(re.search(r"\(([0-9.]+) samples/s\)", line).group(1))
     with open(csv_path) as f:
         rows = f.read().strip().splitlines()
-    if rows[0] != "index,model,true_class,predicted_class,confidence" or len(rows) != N_TEST + 1:
+    if rows[0] != "index,model,true_class,predicted_class,confidence" or len(rows) != n_rows + 1:
         raise AssertionError(f"{tag}: predictions.csv has {len(rows) - 1} rows, header {rows[0]!r}")
     for v in out["logits"]:
-        if v.shape != (N_TEST, 40) or not np.isfinite(v).all():
+        if v.shape != (n_rows, nclasses) or not np.isfinite(v).all():
             raise AssertionError(f"{tag}: logits of shape {v.shape}, finite={np.isfinite(v).all()}")
     return out, rate, launches
 
@@ -821,12 +848,13 @@ def throughput_phase():
 # ---- phase 7 helpers -------------------------------------------------------------
 
 
-def eval_rate(tag, save_path, rows, fwd, wall):
+def eval_rate(tag, save_path, rows, fwd, wall, modalities=2):
     """Samples/s of the pass from its own clock (the ``time`` column of
     ``eval_history_batch/history.csv``); checks the metrics are finite."""
     with open(os.path.join(save_path, "eval_history_batch", "history.csv")) as f:
         row = list(csv.DictReader(f))[-1]
-    metrics = {k: float(row[k]) for k in ("test_loss", "test_acc", "test_acc_modal_0", "test_acc_modal_1")}
+    keys = ("test_loss", "test_acc", *(f"test_acc_modal_{m}" for m in range(modalities)))
+    metrics = {k: float(row[k]) for k in keys}
     if not np.isfinite(list(metrics.values())).all():
         raise AssertionError(f"eval {tag}: metrics {metrics}")
     rate = rows / float(row["time"])
@@ -1251,6 +1279,159 @@ def cache_phase():
     return report
 
 
+# ---- phase 11 helpers ------------------------------------------------------------
+
+
+CLIP_BINDINGS = [
+    f"get_nvgesturedata.root_dir='{CLIP_DATA}'",
+    f"train.batch_size={CLIP_BATCH}",
+]
+
+
+def clip_run(tag, config, extra, epochs=2):
+    """One counted ``train`` run of the 3D family over phase 11's split:
+    no gating launch, the steps and epochs, finite losses, every artifact,
+    three splits resident on the card.  Returns (report, per-step log,
+    trainer)."""
+    save_path = os.path.join(CLIP_RUNS, tag)
+    with step_log() as steps:
+        trainer, fwd, bwd, wall = counted(train, [config], CLIP_BINDINGS + extra + [
+            f"training_loop.n_epochs={epochs + 1}"], save_path, 3)
+    with open(os.path.join(save_path, "history.csv")) as f:
+        rows = list(csv.DictReader(f))
+    per_epoch = N_CLIP_TRAIN // CLIP_BATCH
+    rates = [float(r["train_samples_per_sec"]) for r in rows]
+    log(f"[3dcnn {tag}] {len(rows)} epochs, {trainer.step} steps, {trainer.curated_steps} curated, {wall:.1f}s | "
+        f"gating launches {fwd} / {bwd} | train samples/s per epoch {rates} on {smi_line()} | losses "
+        f"{[float(r['loss']) for r in rows]} | steps (step, curated, decision, target) {steps}")
+    if (fwd, bwd) != (0, 0) or trainer.step != epochs * per_epoch or len(rows) != epochs:
+        raise AssertionError(f"3dcnn {tag}: gating launches {(fwd, bwd)}, want (0, 0); {trainer.step} steps, "
+                             f"{len(rows)} epochs")
+    for r in rows:
+        values = [float(r[k]) for k in ("loss", "val_loss", "test_loss", "acc_modal_2", "val_acc_modal_2")]
+        if not np.isfinite(values).all():
+            raise AssertionError(f"3dcnn {tag}: epoch {r['epoch']} values {values}")
+    for name in ("history.csv", "history.pickle", "model_best_val.pt", "model_last_epoch.pt",
+                 "model_best_val.pt.torch.pt", "model_last_epoch.pt.torch.pt"):
+        if not os.path.exists(os.path.join(save_path, name)):
+            raise AssertionError(f"3dcnn {tag}: {name} was not written")
+    report = {"fwd_launches": fwd, "bwd_launches": bwd, "steps": trainer.step, "curated_steps": trainer.curated_steps,
+              "train_samples_per_s": rates, "wall_s": wall}
+    return report, steps, trainer
+
+
+def clip_recording_nesting(save_path):
+    """The recording pass's pickle: batches x 3 MMTMs x 3 modalities of
+    (real rows, C) float32 maps over the whole train file, in order."""
+    with open(os.path.join(save_path, "eval_history_batch", "history.pickle"), "rb") as f:
+        H = pickle.load(f)
+    batches = H["test_squeezedmaps_array_list"][0]
+    shapes = [[[v.shape for v in m] for m in b] for b in batches]
+    want = [[[(min(CLIP_BATCH, N_CLIP_TRAIN_FILE - s), c)] * CLIP_MODALITIES for c in FUSION_CHANNELS]
+            for s in range(0, N_CLIP_TRAIN_FILE, CLIP_BATCH)]
+    if shapes != want or any(v.dtype != np.float32 or not np.isfinite(v).all() for b in batches for m in b for v in m):
+        raise AssertionError(f"3dcnn recording: nesting {shapes}, want {want}")
+    if sorted(np.asarray(H["test_indices"][0]).tolist()) != list(range(N_CLIP_TRAIN_FILE)):
+        raise AssertionError("3dcnn recording: test_indices are not the train file's clips")
+    return len(batches)
+
+
+def clip_cpu_agreement(ckpt):
+    """The eval forward of ``ckpt``'s model on a small input, on the card
+    and on the CPU (float32, cuDNN deterministic, TF32 off)."""
+    cpu_model = MMTM3DCNN(nclasses=CLIP_CLASSES)
+    load_weights(cpu_model, ckpt)
+    cpu_model = cpu_model.to(memory_format=cpu_model.memory_format).eval()
+    b, frames, size = CLIP_SMALL
+    x = torch.from_numpy(np.random.default_rng(5).normal(size=(b, CLIP_MODALITIES, frames, size, size, 3))
+                         .astype(np.float32))
+    mask = torch.ones(b)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with torch.no_grad():
+            _, want, _, _ = cpu_model(x, valid_mask=mask, mmtm_state={})
+            gpu_model = copy.deepcopy(cpu_model).cuda()
+            mmtm_gating.launches = 0
+            _, got, _, _ = gpu_model(x.cuda(), valid_mask=mask.cuda(), mmtm_state={})
+            torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    if mmtm_gating.launches:
+        raise AssertionError(f"3dcnn small forward made {mmtm_gating.launches} gating launches, expected 0")
+    return max(check_close(f"3dcnn gpu vs cpu logits modality {i}", g.cpu(), w, *CPU_LOGIT_TOL)
+               for i, (g, w) in enumerate(zip(got, want)))
+
+
+def clip_phase():
+    """Phase 11: the 3-modality 3D-CNN family at full width (three r3d-18
+    towers, 25 classes, 16 frames of 112²) through ``train`` (guided f32
+    and bf16, random f32), ``eval_`` (recording, flow-off) and
+    ``predict_``, every split resident on the card and no gating kernel
+    launched (the family's gating is eager, as in the JAX package)."""
+    t0 = time.time()
+    make_synthetic_nvgesture(CLIP_DATA, n_train=N_CLIP_TRAIN_FILE, n_test=N_CLIP_TEST, num_modalities=CLIP_MODALITIES,
+                             frames=CLIP_FRAMES, image_size=CLIP_SIZE, nclasses=CLIP_CLASSES, seed=3)
+    log(f"[3dcnn] synthetic split of {N_CLIP_TRAIN_FILE} + {N_CLIP_TEST} clips of {CLIP_MODALITIES} x {CLIP_FRAMES} "
+        f"x {CLIP_SIZE}² in {time.time() - t0:.1f}s")
+    guided = "configs/training_3dcnn_guided.gin"
+    report = {}
+    for tag, extra in (("guided_f32", []), ("guided_bf16", ["MMTM_3DCNN.compute_dtype='bfloat16'"])):
+        report[tag], _, trainer = clip_run(tag, guided, extra)
+        if trainer.curated_steps < 1:
+            raise AssertionError(f"3dcnn {tag}: no step ran with curation on")
+        del trainer
+        torch.cuda.empty_cache()
+
+    # random: locked in epoch 1 (starting_epoch 2); each decision the draw of
+    # (seed, step) over modes 0..3, mode m > 0 caring for modality m - 1
+    report["random"], steps, trainer = clip_run("random", "configs/training_3dcnn_random.gin", [])
+    del trainer
+    per_epoch = N_CLIP_TRAIN // CLIP_BATCH
+    gen = torch.Generator(device="cuda")
+    draws = [int(random_draw(gen, SEED, t, CLIP_MODALITIES)) for t in range(2 * per_epoch)]
+    decisions = [(t >= per_epoch and d != 0, d - 1 if t >= per_epoch and d != 0 else 0) for t, d in enumerate(draws)]
+    check_steps("3dcnn random", steps, decisions, [False] + [m for m, _ in decisions[:-1]])
+    report["random"]["draws"] = draws
+
+    run = os.path.join(CLIP_RUNS, "guided_f32")
+    ckpt = os.path.join(run, "model_best_val.pt")
+    weights = [f"get_nvgesturedata.root_dir='{CLIP_DATA}'", f"eval_.pretrained_weights_path='{ckpt}'"]
+    trainer, fwd, bwd, wall = counted(eval_, ["configs/recording_3dcnn.gin"], weights, run, 1)
+    del trainer
+    if (fwd, bwd) != (0, 0):
+        raise AssertionError(f"3dcnn recording: gating launches {(fwd, bwd)}, want (0, 0)")
+    report["record"] = {**eval_rate("3dcnn record", run, N_CLIP_TRAIN_FILE, fwd, wall, CLIP_MODALITIES),
+                        "fwd_launches": fwd, "bwd_launches": bwd, "batches": clip_recording_nesting(run)}
+
+    off = os.path.join(CLIP_RUNS, "flow_off")
+    trainer, fwd, bwd, wall = counted(eval_, ["configs/eval_3dcnn.gin"], weights + [
+        f"MMTM_3DCNN.mmtm_rescale_eval_file_path='{os.path.join(run, 'eval_history_batch')}'",
+        f"MMTM_3DCNN.mmtm_rescale_training_file_path='{run}'",
+    ], off, 1)
+    del trainer
+    if (fwd, bwd) != (0, 0):
+        raise AssertionError(f"3dcnn flow-off: gating launches {(fwd, bwd)}, want (0, 0)")
+    report["flow_off"] = {**eval_rate("3dcnn flow_off", off, N_CLIP_TEST, fwd, wall, CLIP_MODALITIES),
+                          "fwd_launches": fwd, "bwd_launches": bwd}
+
+    _, rate, launches = run_predict("3dcnn", [guided], [
+        f"get_nvgesturedata.root_dir='{CLIP_DATA}'", "predict_.model='MMTM_3DCNN'",
+        f"predict_.batch_size={CLIP_BATCH}", f"predict_.pretrained_weights_path='{ckpt}'",
+    ], os.path.join(CLIP_RUNS, "predict"), n_rows=N_CLIP_TEST, nclasses=CLIP_CLASSES)
+    if launches:
+        raise AssertionError(f"3dcnn predict: {launches} gating launches, want 0")
+    report["predict"] = {"samples_per_s": rate, "fwd_launches": launches}
+
+    report["cpu_logit_err"] = clip_cpu_agreement(ckpt)
+    log(f"[3dcnn] card vs CPU eval forward at B={CLIP_SMALL[0]}, {CLIP_SMALL[1]} frames of {CLIP_SMALL[2]}²: "
+        f"max |logit diff| {report['cpu_logit_err']:.3e} (tolerance rtol, atol {CPU_LOGIT_TOL})")
+    torch.cuda.empty_cache()
+    log(f"[3dcnn] samples/s on {smi_line()}: " + json.dumps({
+        k: v.get("train_samples_per_s", v.get("samples_per_s")) for k, v in report.items() if isinstance(v, dict)}))
+    return report
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs an NVIDIA GPU", file=sys.stderr)
@@ -1308,6 +1489,16 @@ def main() -> int:
     finally:
         shutil.rmtree(CACHE_DATA, ignore_errors=True)
         shutil.rmtree(CACHE_RUNS, ignore_errors=True)
+    try:
+        clips = phase("11 3dcnn", clip_phase)
+        log("[3dcnn] " + json.dumps(clips))
+    finally:
+        shutil.rmtree(CLIP_DATA, ignore_errors=True)
+        shutil.rmtree(CLIP_RUNS, ignore_errors=True)
+    # the 3D family's runs (phase 11): its gating is eager, as in the JAX
+    # package, so each of them launched neither kernel
+    launches_3d = {direction: {f"launches_3dcnn_{k}": v[f"{direction}_launches"] for k, v in clips.items()
+                               if isinstance(v, dict) and f"{direction}_launches" in v} for direction in ("fwd", "bwd")}
 
     def bound_by(report):
         return "bytes" if all(s["bound_by"] == "bytes" for s in report["sites"].values()) else "operations"
@@ -1335,6 +1526,7 @@ def main() -> int:
         # the other controllers (phase 9) and the cached/streamed runs (phase 10)
         **{f"launches_{k}": v["fwd_launches"] for k, v in controllers.items()},
         **{f"launches_{k}": v["fwd_launches"] for k, v in cached.items()},
+        **launches_3d["fwd"],
         "max_abs_err": f32["max_abs_err"],
         "max_abs_err_bf16": bf16["max_abs_err"],
         # float32, the configuration's dtype: one forward's three fusion sites at B=128
@@ -1358,6 +1550,7 @@ def main() -> int:
         "launches_bf16": training["bf16"]["bwd_launches"],
         **{f"launches_{k}": v["bwd_launches"] for k, v in controllers.items()},
         **{f"launches_{k}": v["bwd_launches"] for k, v in cached.items()},
+        **launches_3d["bwd"],
         "max_abs_err": bf32["max_abs_err"],
         "max_abs_err_bf16": bbf16["max_abs_err"],
         # float32: one step's three fusion sites at B=128

@@ -9,11 +9,13 @@ the reference the port's tests hold it against; the port itself imports
 Ported so far: serving (``predict_``), training with resume under the
 guided, random, weakest and adaptive-weakest controllers (``train``) and
 the conditional-utilization eval (``eval_``: the recording pass and the
-flow-off pass, ``analysis/``), on the two-tower ResNet-18 + MMTM model,
-reading each split from a corpus resident on the device
-(``data/pipeline.py``), with the fused MMTM gating forward and backward as
-hand-written CUDA kernels (``ops/mmtm_gating.py``, ``csrc/``) and the host
-data helpers of ``csrc/fastio.cc``.
+flow-off pass, ``analysis/``), on both model families: the two-tower
+ResNet-18 + MMTM model (``models/mvcnn.py``) and the 3-modality r3d-18 +
+MMTM model (``models/mmtm_3dcnn.py``, RGB + depth + flow clips from
+``data/nvgesture.py``), reading each split from a corpus resident on the
+device (``data/pipeline.py``), with the fused MMTM gating forward and
+backward as hand-written CUDA kernels (``ops/mmtm_gating.py``, ``csrc/``)
+on the two-modality path and the host data helpers of ``csrc/fastio.cc``.
 """
 
 __version__ = "0.1.0"

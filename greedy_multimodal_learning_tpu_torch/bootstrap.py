@@ -9,11 +9,17 @@ from .models.layers import init_parameters
 
 
 def build_model_and_loaders(model_name: str, batch_size: int, device):
-    """Model-family dispatch.  This slice ports 'MMTM_MVCNN' (ModelNet40
-    multiview).  Returns (model, (train, val, test) loaders), whose corpus,
-    when cached, lives on ``device``."""
+    """Model-family dispatch (``bootstrap.py:15-26``): 'MMTM_MVCNN'
+    (ModelNet40 multiview) or 'MMTM_3DCNN' (RGB + depth + flow clips through
+    3D-CNN towers).  Returns (model, (train, val, test) loaders), whose
+    corpus, when cached, lives on ``device``."""
+    if model_name == "MMTM_3DCNN":
+        from .data.nvgesture import get_nvgesturedata
+        from .models import build_3dcnn_from_config
+
+        return build_3dcnn_from_config(), get_nvgesturedata(batch_size=batch_size, device=device)
     if model_name != "MMTM_MVCNN":
-        raise NotImplementedError(f"model {model_name!r} is not ported yet; the port has 'MMTM_MVCNN'")
+        raise ValueError(f"unknown model {model_name!r}; the families are 'MMTM_MVCNN' and 'MMTM_3DCNN'")
     from .data import get_mvdcndata
     from .models import build_model_from_config
 
@@ -42,7 +48,8 @@ def resolve_device(device) -> torch.device:
 
 def init_model(model: torch.nn.Module, seed: int, device) -> torch.nn.Module:
     """Seeded initialization (on the CPU, so a seed gives the same weights
-    on every device), then move to ``device`` in channels-last memory and
-    switch to eval mode."""
+    on every device), then move to ``device`` in the family's channels-last
+    memory format (``model.memory_format``: ``channels_last`` for 4-D
+    weights, ``channels_last_3d`` for 5-D) and switch to eval mode."""
     init_parameters(model, torch.Generator().manual_seed(int(seed)))
-    return model.to(device=resolve_device(device), memory_format=torch.channels_last).eval()
+    return model.to(device=resolve_device(device), memory_format=model.memory_format).eval()

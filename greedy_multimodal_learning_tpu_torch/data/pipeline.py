@@ -10,7 +10,8 @@
 * :class:`DeviceCachePipeline` uploads the split once and gathers every
   batch on its device.
 
-Iteration yields dicts: {images: (B,V,H,W,C) u8, labels: (B,) i32,
+Iteration yields dicts: {images: (B,V,H,W,C) u8 images or (B,M,T,H,W,C)
+u8 clips, labels: (B,) i32,
 indices: (B,) i32, mask: (B,) f32, size: int}; numpy arrays when streamed,
 tensors on the pipeline's device (``indices`` and ``size`` on the host)
 when cached.

@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from . import checkpoint as ckpt
-from ..data.transforms import draw_flips, preprocess
+from ..data.transforms import draw_flips, flip_shape, preprocess
 from .bdr import GroupReducer
 from .callbacks import CallbackList, ProgressionCallback, ValidationProgressionCallback
 from .controller import ControllerState, init_controller_state, random_draw
@@ -226,14 +226,15 @@ class Trainer:
     def _to_device(self, batch):
         return {k: _on_device(batch[k], self.device) for k in ("images", "labels", "mask")}
 
-    def train_flips(self, batch_size: int, views: int) -> torch.Tensor:
-        """The (B, V) flips of the next train step, a function of (seed,
-        step) drawn on the device."""
+    def train_flips(self, *shape: int) -> torch.Tensor:
+        """The flips of the next train step, of ``shape`` ((B, V) for image
+        stacks, (B,) for clips: :func:`~..data.transforms.flip_shape`), a
+        function of (seed, step) drawn on the device."""
         self._flip_gen.manual_seed(self._seed * 1_000_003 + self.step)
-        return draw_flips(batch_size, views, self._flip_gen)
+        return draw_flips(shape, self._flip_gen)
 
     def train_batch(self, data, flips, unlock) -> dict:
-        """One train step on a batch of device tensors with the (B, V)
+        """One train step on a batch of device tensors with its
         ``flips`` and the () bool ``unlock``; advances the controller state
         and the step count.  Returns the step's device outputs."""
         self.ctrl, out = train_step(
@@ -251,7 +252,7 @@ class Trainer:
             callback_list.on_forward_begin(batch_ind, batch)
             size = batch["size"]
             data = self._to_device(batch)
-            out = self.train_batch(data, self.train_flips(*data["images"].shape[:2]), unlock)
+            out = self.train_batch(data, self.train_flips(*flip_shape(data["images"].shape)), unlock)
             callback_list.on_backward_end(batch_ind)
             recorded.append({k: out.pop(k) for k in RECORD_KEYS if k in out})
             records.append(out)

@@ -92,8 +92,10 @@ def train_step(
     unlock: torch.Tensor,
 ):
     """One training step on ``batch`` (device tensors: uint8
-    ``images`` (B, V, H, W, C), ``labels``, ``mask``) with the (B, V) bool
-    ``flips``.  Returns (new controller state, outputs)."""
+    ``images`` (B, V, H, W, C) or clips (B, M, T, H, W, C), ``labels``,
+    ``mask``) with the bool ``flips``, (B, V) or (B,)
+    (:func:`~..data.transforms.flip_shape`).  Returns (new controller
+    state, outputs)."""
     x = preprocess(batch["images"], train=True, flip=flips, dtype=model.dtype)
     mask, labels = batch["mask"], batch["labels"]
     _, logits, scales, squeezes = model(x, ctrl.curation_mode, ctrl.caring_modality, train=True, valid_mask=mask)

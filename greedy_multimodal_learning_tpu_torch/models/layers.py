@@ -1,11 +1,12 @@
 """Building-block layers with the JAX package's numerics
-(``greedy_multimodal_learning_tpu/models/layers.py``).
+(``greedy_multimodal_learning_tpu/models/layers.py``), for the 2-D family's
+(B, C, H, W) maps and the 3-D family's (B, C, T, H, W) maps alike.
 
 Parameters and BatchNorm statistics stay float32 whatever the compute
 dtype; convolution and linear weights are cast to the activation's dtype at
 use, as flax's ``dtype=`` does.  BatchNorm computes in float32 and casts
 back to the compute dtype (``layers.py:83-120``); in train mode its batch
-statistics cover the unmasked rows only.
+statistics cover the unmasked rows only, over every axis but the channel.
 """
 
 from __future__ import annotations
@@ -19,6 +20,14 @@ from torch import nn
 
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` (no bias) whose float32 weight is cast to the input's
+    dtype at use."""
+
+    def forward(self, x):
+        return self._conv_forward(x, self.weight.to(x.dtype), None)
+
+
+class Conv3d(nn.Conv3d):
+    """``nn.Conv3d`` (no bias) whose float32 weight is cast to the input's
     dtype at use."""
 
     def forward(self, x):
@@ -41,50 +50,63 @@ class Linear(nn.Linear):
         return F.linear(x, self.weight.to(x.dtype)) + self.bias.to(x.dtype)
 
 
-class BatchNorm2d(nn.BatchNorm2d):
-    """``nn.BatchNorm2d`` (eps 1e-5, momentum 0.1) with ``TorchBatchNorm``'s
-    semantics (``layers.py:83-120``); the explicit ``train`` argument, not
-    ``self.training``, selects the statistics, as in the JAX package.
+class _MaskedBatchNorm:
+    """``TorchBatchNorm``'s semantics (``layers.py:83-120``) for a torch
+    BatchNorm (eps 1e-5, momentum 0.1) on (B, C, *spatial) maps; the
+    explicit ``train`` argument, not ``self.training``, selects the
+    statistics, as in the JAX package.
 
     * ``train=False``: the running statistics, in one ``F.batch_norm`` pass
       (float32 statistics and affine, float32 normalize, the result in the
       input's dtype, as ``layers.py:118-120``).
     * ``train=True``: batch statistics over the rows whose (B,) ``mask`` is
-      non-zero (all rows without a mask), in float32; the normalize uses
-      the biased variance, the running variance takes the unbiased one
-      ``var * n / max(n - 1, 1)``.  ``F.batch_norm`` cannot mask, so this is
-      plain torch ops."""
+      non-zero (all rows without a mask) and every spatial position, in
+      float32; the normalize uses the biased variance, the running variance
+      takes the unbiased one ``var * n / max(n - 1, 1)``.  ``F.batch_norm``
+      cannot mask, so this is plain torch ops."""
 
     def forward(self, x, train: bool = False, mask=None):
         if not train:
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias, False, 0.0, self.eps)
         xf = x.float()
+        dims = (0,) + tuple(range(2, x.dim()))
+        per_channel = (1, -1) + (1,) * (x.dim() - 2)
         m = torch.ones(x.shape[0], device=x.device) if mask is None else mask.float()
-        m = m.view(-1, 1, 1, 1)
-        n = m.sum() * (x.shape[2] * x.shape[3])
-        mean = (xf * m).sum(dim=(0, 2, 3)) / n
-        centered = xf - mean.view(1, -1, 1, 1)
-        var = (centered.square() * m).sum(dim=(0, 2, 3)) / n
+        m = m.view((-1,) + (1,) * (x.dim() - 1))
+        n = m.sum() * math.prod(x.shape[2:])
+        mean = (xf * m).sum(dim=dims) / n
+        centered = xf - mean.view(per_channel)
+        var = (centered.square() * m).sum(dim=dims) / n
         with torch.no_grad():
             unbiased = var * (n / torch.clamp(n - 1.0, min=1.0))
             self.running_mean.mul_(1.0 - self.momentum).add_(self.momentum * mean)
             self.running_var.mul_(1.0 - self.momentum).add_(self.momentum * unbiased)
         inv = torch.rsqrt(var + self.eps) * self.weight
-        y = centered * inv.view(1, -1, 1, 1) + self.bias.view(1, -1, 1, 1)
+        y = centered * inv.view(per_channel) + self.bias.view(per_channel)
         return y.to(x.dtype)
+
+
+class BatchNorm2d(_MaskedBatchNorm, nn.BatchNorm2d):
+    """The masked BatchNorm on (B, C, H, W) maps."""
+
+
+class BatchNorm3d(_MaskedBatchNorm, nn.BatchNorm3d):
+    """The masked BatchNorm on (B, C, T, H, W) maps."""
 
 
 @torch.no_grad()
 def init_parameters(module: nn.Module, generator: torch.Generator):
     """Seeded initialization with the JAX package's initializers: kaiming
-    normal fan-out for convolutions, torch's default U(±1/sqrt(fan_in)) for
-    linear weights and biases, ones/zeros for BatchNorm."""
+    normal fan-out for 2-D and 3-D convolutions (on an (O, I, *kernel)
+    weight the variance of flax's ``variance_scaling(2, "fan_out")`` on its
+    (*kernel, I, O) kernel), torch's default U(±1/sqrt(fan_in)) for linear
+    weights and biases, ones/zeros for BatchNorm."""
     for m in module.modules():
-        if isinstance(m, nn.Conv2d):
+        if isinstance(m, (nn.Conv2d, nn.Conv3d)):
             nn.init.kaiming_normal_(m.weight, mode="fan_out", nonlinearity="relu", generator=generator)
         elif isinstance(m, nn.Linear):
             bound = 1.0 / math.sqrt(m.in_features)
             m.weight.uniform_(-bound, bound, generator=generator)
             m.bias.uniform_(-bound, bound, generator=generator)
-        elif isinstance(m, nn.BatchNorm2d):
+        elif isinstance(m, (nn.BatchNorm2d, nn.BatchNorm3d)):
             m.reset_parameters()

@@ -35,6 +35,9 @@ class MMTMMVCNN(nn.Module):
     """N-tower ResNet-18 + MMTM fusion model.  Submodules are named
     ``net_view_<i>`` and ``mmtm<2|3|4>`` as in the JAX package."""
 
+    #: the memory format of its weights and maps
+    memory_format = torch.channels_last
+
     def __init__(
         self,
         nclasses: int = 40,
@@ -100,7 +103,7 @@ class MMTMMVCNN(nn.Module):
         towers = self.towers
         feats = []
         for i, tower in enumerate(towers):
-            xi = x[:, i].permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+            xi = x[:, i].permute(0, 3, 1, 2).contiguous(memory_format=self.memory_format)
             feats.append(tower.layer(1, tower.stem(xi, train, valid_mask), train, valid_mask))
         return fused_towers_forward(
             towers,
@@ -118,6 +121,16 @@ class MMTMMVCNN(nn.Module):
         )
 
 
+def compute_dtype(scope: str, dtype=None) -> torch.dtype:
+    """``dtype`` (a torch dtype or its name), else the scope's
+    ``compute_dtype`` binding (default float32), as a floating torch dtype."""
+    name = cfg.query(scope, "compute_dtype", "float32") if dtype is None else dtype
+    torch_dtype = getattr(torch, name) if isinstance(name, str) else name
+    if not isinstance(torch_dtype, torch.dtype) or not torch_dtype.is_floating_point:
+        raise ValueError(f"{scope}.compute_dtype must name a floating torch dtype, got {name!r}")
+    return torch_dtype
+
+
 def build_model_from_config(dtype=None) -> MMTMMVCNN:
     """Construct the model from the ``MMTM_MVCNN`` and ``MMTM_mitigate`` gin
     surface.  Options the port does not carry yet raise."""
@@ -127,17 +140,15 @@ def build_model_from_config(dtype=None) -> MMTMMVCNN:
             "MMTM_MVCNN.pretraining=True needs local torchvision resnet18 weights, which the port "
             "does not load yet; load a checkpoint with predict_.pretrained_weights_path instead"
         )
-    if q("stem_s2d", False):
-        raise NotImplementedError("MMTM_MVCNN.stem_s2d is not ported yet (see ROADMAP.md)")
+    for option in ("stem_s2d", "remat"):
+        if q(option, False):
+            raise NotImplementedError(f"MMTM_MVCNN.{option} is not ported yet (see ROADMAP.md)")
     mk = mmtm_config_kwargs()
     num_towers = int(q("num_views", 2))
     names = cfg.query("Bias_Mitigation_Strong", "MMTMnames", None) or list(DEFAULT_MODALITY_NAMES)
     if len(names) != num_towers:
         names = list(DEFAULT_MODALITY_NAMES) if num_towers == 2 else [f"modal_{i}" for i in range(num_towers)]
-    dtype_name = q("compute_dtype", "float32") if dtype is None else dtype
-    torch_dtype = getattr(torch, dtype_name) if isinstance(dtype_name, str) else dtype_name
-    if not isinstance(torch_dtype, torch.dtype) or not torch_dtype.is_floating_point:
-        raise ValueError(f"MMTM_MVCNN.compute_dtype must name a floating torch dtype, got {dtype_name!r}")
+    torch_dtype = compute_dtype("MMTM_MVCNN", dtype)
     return MMTMMVCNN(
         nclasses=int(q("nclasses", 40)),
         num_towers=num_towers,

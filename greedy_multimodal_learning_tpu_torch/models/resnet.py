@@ -69,6 +69,6 @@ class ResNet18Trunk(nn.Module):
         return x
 
     def head(self, x):
-        """Global average pool in float32, cast to the compute dtype, then fc
-        (``resnet.py:148-151``)."""
-        return self.fc(x.mean(dim=(2, 3), dtype=torch.float32).to(x.dtype))
+        """Global average pool over every spatial dim in float32, cast to the
+        compute dtype, then fc (``resnet.py:148-151``)."""
+        return self.fc(x.mean(dim=tuple(range(2, x.dim())), dtype=torch.float32).to(x.dtype))

@@ -46,8 +46,9 @@ def test_importing_the_port_loads_no_jax():
     assert r.returncode == 0, r.stdout + r.stderr
     n_modules = int(r.stdout.split()[0])
     # the serving and training slices' modules, the analysis package, the eval
-    # entry and the host library's loader (utils.native)
-    assert n_modules >= 39, r.stdout
+    # entry, the host library's loader (utils.native) and the 3D family's
+    # models and clip data
+    assert n_modules >= 42, r.stdout
 
 
 @pytest.mark.parametrize(

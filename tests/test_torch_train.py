@@ -139,6 +139,7 @@ def test_callbacks_by_name():
     ("training_loop.orbax_dir='ckpt'", "orbax_dir"),
     ("training_loop.model_parallel=2", "model_parallel"),
     ("MMTM_MVCNN.stem_s2d=True", "stem_s2d"),
+    ("MMTM_MVCNN.remat=True", "remat"),
 ])
 def test_unported_loop_options_raise(tmp_path, binding, match):
     root = make_synthetic_modelnet(str(tmp_path / "data"), n_train=5, n_test=2, num_views=2, image_size=IMG, nclasses=NC)
