@@ -99,9 +99,34 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    Every run finite, every artifact written, each split resident on the
    card, and neither gating kernel launched (the family's gating is eager,
    as in the JAX package); samples/s of each run;
-12. a ``{"kernels": [...]}`` JSON line (with each 3D run's launch counts,
-   all 0), the ``nvidia-smi`` line, and last ``{"ok": true, "device":
-   {...}}``.  Each phase's seconds are logged.
+12. the side entries and options on the 2-D family at full width, in phase
+   5's split, float32 run and phase 7's recording (kernels, B=128, TF32
+   off): (a) ``predict_`` with ``fold_bn=True`` on ``model_best_val.pt``,
+   its logits against the unfolded run's, 3 forward launches a batch, and
+   the folded and unfolded forward's ms on a resident batch; (b)
+   ``run_api.run_entry("eval", ...)`` with ``configs/recording.gin`` and
+   ``evalution_loop.fold_bn_eval=True``, its maps within the ``sq``
+   tolerance of phase 7's unfolded recording; (c) the ``eval_sweep`` entry
+   over ``model_best_val.pt`` and ``model_last_epoch.pt`` (K=2), each row
+   against a separate ``eval_`` of its checkpoint (rtol 1e-5), 3·K forward
+   launches a batch, and the sweep's samples/s against two one-checkpoint
+   sweeps over the same 1,024 resident samples; (d) two epochs with
+   ``MMTM_MVCNN.remat=True`` against the same run without, cuDNN
+   deterministic: final tensors within ``STEP_TOL`` of the update, equal
+   launch counts, the peak device memory of each, and the guided step's
+   samples/s and peak memory with and without remat over 20 steps each on
+   a resident batch; (e) an epoch with ``stem_s2d`` (the plain stem, as
+   the flag only keeps the JAX package's refusal of odd sizes); (f) an epoch
+   each with ``MMTM_mitigate.SEonly`` and ``shareweight``, which launch
+   neither kernel; (g) ``pretraining=True`` from a seeded torchvision-layout
+   ResNet-18 file: both trunks equal the file before the first step, then
+   an epoch; (h) ``Trainer.enable_profiling`` over an epoch: one trace that
+   names both gating kernels.  Every run finite, every artifact written,
+   each split resident on the card; samples/s of each run;
+13. a ``{"kernels": [...]}`` JSON line (with the launch counts of each 3D
+   run, all 0, and of each phase-12 run), the ``nvidia-smi`` line, and
+   last ``{"ok": true, "device": {...}}``.  Each phase's seconds are
+   logged.
 
 Scratch files go to ``smoke_out/`` in the checkout (git-ignored); the
 synthetic splits, checkpoints, training and eval runs are removed at exit.
@@ -131,10 +156,14 @@ from greedy_multimodal_learning_tpu_torch.bootstrap import init_model
 from greedy_multimodal_learning_tpu_torch.data.pipeline import DeviceCachePipeline
 from greedy_multimodal_learning_tpu_torch.data.nvgesture import make_synthetic_nvgesture
 from greedy_multimodal_learning_tpu_torch.data.synthetic import make_synthetic_modelnet
+from greedy_multimodal_learning_tpu_torch.data.transforms import preprocess
 from greedy_multimodal_learning_tpu_torch.engine import Trainer, load_weights, make_optimizer
 from greedy_multimodal_learning_tpu_torch.engine.controller import random_draw
+from greedy_multimodal_learning_tpu_torch.engine.fold_bn import fold_batchnorm
+from greedy_multimodal_learning_tpu_torch.engine.sweep import eval_sweep
 from greedy_multimodal_learning_tpu_torch.entries import eval_, train
-from greedy_multimodal_learning_tpu_torch.models import MMTM3DCNN, MMTMMVCNN
+from greedy_multimodal_learning_tpu_torch.eval_sweep import eval_sweep_
+from greedy_multimodal_learning_tpu_torch.models import MMTM3DCNN, MMTMMVCNN, ResNet18Trunk, init_parameters
 from greedy_multimodal_learning_tpu_torch.ops import build as kernel_build
 from greedy_multimodal_learning_tpu_torch.ops.mmtm_gating import (
     cuda_launches,
@@ -146,6 +175,7 @@ from greedy_multimodal_learning_tpu_torch.ops.mmtm_gating import (
     mmtm_gating_plain,
 )
 from greedy_multimodal_learning_tpu_torch.predict import predict_
+from greedy_multimodal_learning_tpu_torch.run_api import run_entry
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(REPO, "smoke_out")
@@ -1432,6 +1462,390 @@ def clip_phase():
     return report
 
 
+# ---- phase 12 helpers ------------------------------------------------------------
+
+
+# BatchNorm folded into the convolutions against the unfolded forward, f32
+# without TF32, logits and recorded maps: rtol, and atol as a fraction of the
+# largest |value| (tests/test_fold_bn.py:51 holds the JAX package to (2e-4,
+# 2e-4)).  The folded recording's maps are held to the kernel's sq tolerance.
+FOLD_LOGIT_TOL = (2e-4, 2e-4)
+SWEEP_RTOL = 1e-5  # a sweep row against a separate eval_ of its checkpoint (tests/test_sweep.py:37-39)
+RATE_BATCHES = 8  # resident B=128 batches the sweep is timed over (phase 10's 1,024 train samples)
+RATE_STEPS = 10  # timed guided steps a turn, two turns a variant (off, on, on, off)
+SIDE_DATA = [
+    "MMTM_mitigate.use_pallas=True",
+    f"get_mvdcndata.root_dir='{TRAIN_DATA}'",
+    "get_mvdcndata.specific_views=[0, 1]",
+]
+ARTIFACTS = ("history.csv", "history.pickle", "model_best_val.pt", "model_last_epoch.pt",
+             "model_best_val.pt.torch.pt", "model_last_epoch.pt.torch.pt")
+
+
+@contextlib.contextmanager
+def counting():
+    """The gating wrappers' counts, set to 0 on entry; the dict gets
+    ``fwd`` and ``bwd`` on exit, after a synchronize."""
+    counts = {}
+    mmtm_gating.launches = 0
+    mmtm_gating_bwd.launches = 0
+    yield counts
+    torch.cuda.synchronize()
+    counts.update(fwd=mmtm_gating.launches, bwd=mmtm_gating_bwd.launches)
+
+
+def side_train(tag, extra, epochs=1, resident=3):
+    """One counted ``train`` run on phase 5's split (guided, kernels, f32):
+    finite losses and every artifact; returns (trainer, report)."""
+    save_path = os.path.join(TRAIN_RUNS, f"side_{tag}")
+    trainer, fwd, bwd, wall = counted(train, ["configs/training_guided.gin"], TRAIN_BINDINGS[:-1] + [
+        f"training_loop.n_epochs={epochs + 1}", *extra], save_path, resident)
+    with open(os.path.join(save_path, "history.csv")) as f:
+        rows = list(csv.DictReader(f))
+    for r in rows:
+        losses = [float(r[k]) for k in ("loss", "val_loss", "test_loss")]
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"{tag}: epoch {r['epoch']} losses {losses}")
+    missing = [name for name in ARTIFACTS if not os.path.exists(os.path.join(save_path, name))]
+    if len(rows) != epochs or trainer.step != epochs * (N_TRAIN // BATCH) or missing:
+        raise AssertionError(f"{tag}: {len(rows)} epochs, {trainer.step} steps, artifacts missing {missing}")
+    rates = [float(r["train_samples_per_sec"]) for r in rows]
+    log(f"[side {tag}] {trainer.step} steps, {wall:.1f}s | forward launches {fwd}, backward {bwd} | train "
+        f"samples/s {rates}; losses {[float(r['loss']) for r in rows]}")
+    return trainer, {"fwd_launches": fwd, "bwd_launches": bwd, "steps": trainer.step,
+                     "train_samples_per_s": rates, "wall_s": wall}
+
+
+def want_launches(steps, epochs=1):
+    """The kernel path's counts for a run: 3 a train step and eval batch
+    forward, 3 a train step backward."""
+    eval_batches = epochs * (-(-N_VAL // BATCH) + -(-N_TRAIN_TEST // BATCH))
+    return 3 * (steps + eval_batches), 3 * steps
+
+
+def fold_predict(run_dir):
+    """(a) ``predict_`` with ``fold_bn=True`` against the unfolded run."""
+    base = SIDE_DATA + ["predict_.batch_size=128",
+                        f"predict_.pretrained_weights_path='{os.path.join(run_dir, 'model_best_val.pt')}'"]
+    outs = {}
+    for fold in (False, True):
+        outs[fold] = run_predict(f"fold_bn={fold}", ["configs/training_guided.gin"], base + [
+            f"predict_.fold_bn={fold}"], os.path.join(WORK, f"predict_fold_{fold}"), n_rows=N_TRAIN_TEST)
+    scale = max(float(np.abs(v).max()) for v in outs[False][0]["logits"])
+    err = max(check_close(f"folded vs unfolded logits view {i}", torch.from_numpy(g), torch.from_numpy(w),
+                          FOLD_LOGIT_TOL[0], FOLD_LOGIT_TOL[1] * scale)
+              for i, (g, w) in enumerate(zip(outs[True][0]["logits"], outs[False][0]["logits"])))
+    launches = outs[True][2]
+    if launches != 3 * -(-N_TRAIN_TEST // BATCH):
+        raise AssertionError(f"fold_bn predict: {launches} forward launches, want {3 * -(-N_TRAIN_TEST // BATCH)}")
+    forward_ms = fold_forward_ms(os.path.join(run_dir, "model_best_val.pt"))
+    log(f"[side fold predict] folded vs unfolded logits: max |diff| {err:.3e} (largest |logit| {scale:.3e}); "
+        f"samples/s folded {outs[True][1]}, unfolded {outs[False][1]} (one batch each); forward ms on a resident "
+        f"batch, B={BATCH}, median of 10, turns unfolded, folded, folded, unfolded: {json.dumps(forward_ms)}")
+    return {"launches": launches, "max_abs_err": err, "max_abs_logit": scale,
+            "samples_per_s": outs[True][1], "samples_per_s_unfolded": outs[False][1], "forward_ms": forward_ms}
+
+
+def eval_model(path):
+    """The seeded 2-D model with ``path`` loaded, on the card, and its
+    state_dict."""
+    model = init_model(MMTMMVCNN(nclasses=40, use_pallas=True), SEED, "cpu")
+    load_weights(model, path)
+    model = model.to(device="cuda", memory_format=torch.channels_last)
+    return model, dict(model.state_dict())
+
+
+def fold_forward_ms(path):
+    """The eval forward's device ms under the checkpoint's state and under
+    its folded state (``functional_call``, as the Trainer runs a folded
+    pass), in turns: unfolded, folded, folded, unfolded."""
+    model, state = eval_model(path)
+    states = {"unfolded": state, "folded": fold_batchnorm(state)}
+    data, _ = device_batch(21)
+    x = preprocess(data["images"], train=False)
+    kwargs = {"train": False, "valid_mask": data["mask"], "mmtm_state": {}}
+    times = {tag: [] for tag in states}
+    with torch.no_grad():
+        for tag in ("unfolded", "folded", "folded", "unfolded"):
+            times[tag].append(time_ms(lambda: torch.func.functional_call(model, states[tag], (x,), kwargs), (),
+                                      iters=10))
+    return times
+
+
+def fold_record(run_dir):
+    """(b) ``run_entry("eval", ...)``: the recording pass with
+    ``evalution_loop.fold_bn_eval``, against phase 7's unfolded recording."""
+    rows = N_TRAIN + N_VAL
+    save_path = os.path.join(TRAIN_RUNS, "side_fold_record")
+    bindings = SIDE_DATA + [f"eval_.batch_size={BATCH}", "evalution_loop.fold_bn_eval=True",
+                            f"eval_.pretrained_weights_path='{os.path.join(run_dir, 'model_best_val.pt')}'"]
+    with built_pipelines() as built, counting() as n, contextlib.redirect_stdout(io.StringIO()):
+        t0 = time.time()
+        run_entry("eval", save_path, os.path.join(REPO, "configs", "recording.gin"), "#".join(bindings))
+    wall = time.time() - t0
+    check_resident("fold_record", built, 1)
+    want = 3 * -(-rows // BATCH)
+    if (n["fwd"], n["bwd"]) != (want, 0):
+        raise AssertionError(f"fold_bn recording: launches {(n['fwd'], n['bwd'])}, want {(want, 0)}")
+    report = eval_rate("fold_record", save_path, rows, n["fwd"], wall)
+    pairs = [(f"mmtm{m + 2} view {v}", torch.from_numpy(f), torch.from_numpy(u))
+             for m, (fm, um) in enumerate(zip(recorded_maps("fold", save_path, rows), recorded_maps("unfolded", run_dir, rows)))
+             for v, (f, u) in enumerate(zip(fm, um))]
+    report["max_abs_err"] = max(
+        check_close(f"recorded squeeze {name}: folded vs unfolded", f, u, *TOL[torch.float32]["sq"])
+        for name, f, u in pairs)
+    report["max_rel_err"] = max(float(((f - u).abs() / u.abs().clamp(min=1e-30)).max()) for _, f, u in pairs)
+    log(f"[side fold record] recorded maps folded vs phase 7's unfolded pass, within the kernel's sq tolerance "
+        f"{TOL[torch.float32]['sq']}: max |diff| {report['max_abs_err']:.3e}, max relative {report['max_rel_err']:.3e}")
+    return report
+
+
+def sweep_check(run_dir):
+    """(c) the ``eval_sweep`` entry over phase 5's two checkpoints against a
+    separate ``eval_`` of each."""
+    paths = [os.path.join(run_dir, "model_best_val.pt"), os.path.join(run_dir, "model_last_epoch.pt")]
+    batches = -(-N_TRAIN_TEST // BATCH)
+    buf = io.StringIO()
+    cfg.clear_config()
+    cfg.parse_config_files_and_bindings([os.path.join(REPO, "configs/training_guided.gin")], "\n".join(
+        SIDE_DATA + [f"eval_sweep_.checkpoints={paths!r}", f"eval_sweep_.batch_size={BATCH}"]))
+    with built_pipelines() as built, counting() as n, contextlib.redirect_stdout(buf):
+        csv_path = eval_sweep_(os.path.join(TRAIN_RUNS, "side_sweep"))
+    cfg.clear_config()
+    check_resident("sweep", built, 1)
+    if (n["fwd"], n["bwd"]) != (3 * len(paths) * batches, 0):
+        raise AssertionError(f"sweep: launches {(n['fwd'], n['bwd'])}, want {(3 * len(paths) * batches, 0)}")
+    line = next(l for l in buf.getvalue().splitlines() if l.startswith("sweep:"))
+    seconds = float(re.search(r", ([0-9.]+)s \(", line).group(1))
+    with open(csv_path) as f:
+        rows = list(csv.DictReader(f))
+    for k, (path, row) in enumerate(zip(paths, rows)):
+        save_path = os.path.join(TRAIN_RUNS, f"side_sweep_eval{k}")
+        _, fwd, _, wall = counted(eval_, ["configs/training_guided.gin"], SIDE_DATA + [
+            f"eval_.batch_size={BATCH}", f"eval_.pretrained_weights_path='{path}'"], save_path, 1)
+        one = eval_rate(f"sweep_eval{k}", save_path, N_TRAIN_TEST, fwd, wall)
+        for name in ("loss", "acc", "acc_modal_0", "acc_modal_1"):
+            got, want = float(row[name]), one[f"test_{name}"]
+            if row["checkpoint"] != path or not abs(got - want) <= SWEEP_RTOL * abs(want) + 5e-7:
+                raise AssertionError(f"sweep row {row['checkpoint']} {name} {got} vs eval_ {want}")
+    rates = sweep_rates(paths)
+    report = {"launches": n["fwd"], "entry_samples_per_s": N_TRAIN_TEST / seconds, **rates}
+    log(f"[side sweep] K=2 entry over {N_TRAIN_TEST} samples (upload included) {report['entry_samples_per_s']:.1f} "
+        f"samples/s | forward launches {n['fwd']} | over {RATE_BATCHES * BATCH} resident samples, turns separate, "
+        f"sweep, sweep, separate: {json.dumps(rates)}")
+    return report
+
+
+def sweep_rates(paths):
+    """Checkpoint-samples/s of ``eval_sweep`` over RATE_BATCHES resident
+    batches: the K checkpoints in one pass against K one-checkpoint passes
+    (the separate evals without their uploads), in turns separate, sweep,
+    sweep, separate, after one pass of each to warm up."""
+    model = eval_model(paths[0])[0]
+    states = [eval_model(p)[1] for p in paths]
+    batches = [{**device_batch(30 + i)[0], "size": BATCH} for i in range(RATE_BATCHES)]
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return len(paths) * RATE_BATCHES * BATCH / (time.perf_counter() - t0)
+
+    runs = {"sweep": lambda: eval_sweep(model, states, batches),
+            "separate": lambda: [eval_sweep(model, [s], batches) for s in states]}
+    for fn in runs.values():
+        fn()
+    rates = {"sweep": [], "separate": []}
+    for tag in ("separate", "sweep", "sweep", "separate"):
+        rates[tag].append(timed(runs[tag]))
+    return {f"{tag}_ckpt_samples_per_s": v for tag, v in rates.items()}
+
+
+def remat_check():
+    """(d) two epochs with ``MMTM_MVCNN.remat=True`` against the same run
+    without, cuDNN deterministic: the final tensors within ``STEP_TOL`` of
+    the run's update, equal launch counts; peak device memory of each."""
+    start = float_state(init_model(MMTMMVCNN(nclasses=40, use_pallas=True), SEED, "cpu"))
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    runs, peaks = {}, {}
+    try:
+        for tag, extra in (("no_remat", []), ("remat", ["MMTM_MVCNN.remat=True"])):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            runs[tag] = side_train(tag, extra, epochs=2)
+            peaks[tag] = torch.cuda.max_memory_allocated()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    (plain, p), (remat, r) = runs["no_remat"], runs["remat"]
+    if not all(t.remat for t in remat.model.towers) or (p["fwd_launches"], p["bwd_launches"]) != (
+            r["fwd_launches"], r["bwd_launches"]) or (r["fwd_launches"], r["bwd_launches"]) != want_launches(
+            r["steps"], 2):
+        raise AssertionError(f"remat: launches {(r['fwd_launches'], r['bwd_launches'])}, without "
+                             f"{(p['fwd_launches'], p['bwd_launches'])}, want {want_launches(r['steps'], 2)}")
+    ratios = l2_over_update(float_state(remat.model), float_state(plain.model), start)
+    beyond = [k for k, (_, d, u) in ratios.items() if d > STEP_TOL * u + 1e-7]
+    if beyond:
+        raise AssertionError(f"remat vs no remat beyond {STEP_TOL} x the update in {beyond[:5]}")
+    worst = max(v[0] for v in ratios.values())
+    del plain, remat, runs
+    torch.cuda.empty_cache()
+    steps = remat_step_rates()
+    log(f"[side remat] remat vs no remat after 2 epochs, largest ||diff||_2 / ||update||_2 {worst:.3e}; "
+        f"peak memory allocated in the runs {peaks['remat']} B with remat, {peaks['no_remat']} B without; guided "
+        f"steps on a resident batch, B={BATCH}, {RATE_STEPS} a turn, turns off, on, on, off: {json.dumps(steps)}")
+    return {"remat": r, "no_remat": p, "l2_diff_over_update": worst, "peak_bytes_remat": peaks["remat"],
+            "peak_bytes_no_remat": peaks["no_remat"], "steps": steps}
+
+
+def remat_step_rates(warmup=3):
+    """Guided-step samples/s with and without remat on a resident batch,
+    RATE_STEPS timed steps a turn in turns off, on, on, off, and the peak
+    device memory of a step of each (the model, its optimizer state and one
+    batch; no corpus)."""
+    data, flips = device_batch(12)
+    unlock = torch.tensor(True, device="cuda")
+    rates = {False: [], True: []}
+    peaks = {}
+    for remat in (False, True, True, False):
+        model = init_model(MMTMMVCNN(nclasses=40, use_pallas=True, remat=remat), SEED, "cpu").to(
+            device="cuda", memory_format=torch.channels_last)
+        trainer = guided_trainer(model)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(warmup):
+            trainer.train_batch(data, flips, unlock)
+        torch.cuda.synchronize()
+        peaks[remat] = torch.cuda.max_memory_allocated()
+        t0 = time.perf_counter()
+        for _ in range(RATE_STEPS):
+            trainer.train_batch(data, flips, unlock)
+        torch.cuda.synchronize()
+        rates[remat].append(RATE_STEPS * BATCH / (time.perf_counter() - t0))
+        del trainer, model
+        torch.cuda.empty_cache()
+    return {"remat_samples_per_s": rates[True], "no_remat_samples_per_s": rates[False],
+            "step_peak_bytes_remat": peaks[True], "step_peak_bytes_no_remat": peaks[False]}
+
+
+def stem_check():
+    """(e) one epoch of ``train`` with ``MMTM_MVCNN.stem_s2d=True``: the
+    plain stem (the flag keeps the JAX package's refusal of odd sizes)."""
+    _, run = side_train("stem_s2d", ["MMTM_MVCNN.stem_s2d=True"])
+    if (run["fwd_launches"], run["bwd_launches"]) != want_launches(run["steps"]):
+        raise AssertionError(f"stem_s2d: launches {(run['fwd_launches'], run['bwd_launches'])}, "
+                             f"want {want_launches(run['steps'])}")
+    return run
+
+
+def variants_check():
+    """(f) one epoch with ``MMTM_mitigate.SEonly`` and with ``shareweight``
+    under ``use_pallas=True``: neither takes the kernels."""
+    report = {}
+    for tag, binding in (("seonly", "MMTM_mitigate.SEonly=True"), ("shareweight", "MMTM_mitigate.shareweight=True")):
+        _, report[tag] = side_train(tag, [binding])
+        if (report[tag]["fwd_launches"], report[tag]["bwd_launches"]) != (0, 0):
+            raise AssertionError(f"{tag}: launches {(report[tag]['fwd_launches'], report[tag]['bwd_launches'])}, "
+                                 "want (0, 0)")
+    return report
+
+
+def pretrained_check():
+    """(g) ``MMTM_MVCNN.pretraining=True`` from a seeded torchvision-layout
+    ResNet-18 file: each tower's trunk is the file's before the first step,
+    its head the seeded one; then one epoch."""
+    trunk = ResNet18Trunk(1000)
+    init_parameters(trunk, torch.Generator().manual_seed(8))
+    g = torch.Generator().manual_seed(9)
+    with torch.no_grad():
+        for m in trunk.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.running_mean.copy_(0.1 * torch.randn(m.num_features, generator=g))
+                m.running_var.copy_(0.5 + torch.rand(m.num_features, generator=g))
+    sd = trunk.state_dict()
+    path = os.path.join(WORK, "resnet18-seeded.pt")
+    torch.save({"state_dict": sd}, path)
+    seen = {}
+    original = Trainer.train_loop
+
+    def spy(self, *args, **kwargs):
+        seen.update({k: v.detach().cpu().clone() for k, v in self.model.state_dict().items()})
+        return original(self, *args, **kwargs)
+
+    Trainer.train_loop = spy
+    try:
+        _, run = side_train("pretrained", ["MMTM_MVCNN.pretraining=True",
+                                           f"MMTM_MVCNN.pretrained_weights_path='{path}'"])
+    finally:
+        Trainer.train_loop = original
+    head = init_model(MMTMMVCNN(nclasses=40, use_pallas=True), SEED, "cpu").state_dict()
+    for i in range(2):
+        wrong = [k for k, v in sd.items() if not k.startswith("fc.") and not k.endswith("num_batches_tracked")
+                 and not torch.equal(seen[f"net_view_{i}.{k}"], v)]
+        if wrong or not torch.equal(seen[f"net_view_{i}.fc.weight"], head[f"net_view_{i}.fc.weight"]):
+            raise AssertionError(f"pretrained: net_view_{i} differs from the file in {wrong[:5]} or has no fresh head")
+    if (run["fwd_launches"], run["bwd_launches"]) != want_launches(run["steps"]):
+        raise AssertionError(f"pretrained: launches {(run['fwd_launches'], run['bwd_launches'])}")
+    log("[side pretrained] both towers' trunks equal the file before the first step, heads the seeded init")
+    return run
+
+
+def profiling_check():
+    """(h) ``Trainer.enable_profiling`` over one epoch: one trace that names
+    both gating kernels (a trace that lost the card's activity is taken
+    again, up to PROFILER_TRIES times)."""
+    trace_dir = os.path.join(WORK, "trace")
+    original = Trainer.train_loop
+
+    def spy(self, *args, **kwargs):
+        self.enable_profiling(trace_dir)
+        return original(self, *args, **kwargs)
+
+    for attempt in range(PROFILER_TRIES):
+        shutil.rmtree(trace_dir, ignore_errors=True)
+        Trainer.train_loop = spy
+        try:
+            _, run = side_train("profiled", [])
+        finally:
+            Trainer.train_loop = original
+        files = os.listdir(trace_dir)
+        if len(files) != 1:
+            raise AssertionError(f"profiling: trace files {files}, want one")
+        with open(os.path.join(trace_dir, files[0])) as f:
+            names = {e.get("name", "") for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"}
+        found = {k: sum(k in name for name in names) for d in ("fwd", "bwd") for k in OWN_KERNELS[d]}
+        if all(found.values()):
+            log(f"[side profiling] {files[0]}: {len(names)} kernel names, the gating kernels {found}")
+            return {**run, "trace": files[0], "kernel_names": len(names)}
+        log(f"[profiler] enable_profiling: try {attempt + 1} traced {len(names)} kernel names, gating {found}")
+    raise AssertionError("profiling: no trace named both gating kernels")
+
+
+def side_phase(run_dir):
+    """Phase 12 in phase 5's float32 run and split (2-D family at full width,
+    B=128, kernels, f32, TF32 off)."""
+    report = {
+        "fold_predict": fold_predict(run_dir),
+        "fold_record": fold_record(run_dir),
+        "sweep": sweep_check(run_dir),
+        "remat": remat_check(),
+        "stem": stem_check(),
+        **variants_check(),
+        "pretrained": pretrained_check(),
+        "profiled": profiling_check(),
+    }
+    torch.cuda.empty_cache()
+    log(f"[side] samples/s on {smi_line()}: " + json.dumps({
+        "predict_fold_bn": report["fold_predict"]["samples_per_s"], "record_fold_bn": report["fold_record"]["samples_per_s"],
+        "sweep_entry": report["sweep"]["entry_samples_per_s"],
+        **{k: report[k]["train_samples_per_s"] for k in ("seonly", "shareweight", "pretrained", "profiled")},
+        "remat": report["remat"]["remat"]["train_samples_per_s"],
+        "no_remat": report["remat"]["no_remat"]["train_samples_per_s"],
+        "stem_s2d": report["stem"]["train_samples_per_s"]}))
+    return report
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs an NVIDIA GPU", file=sys.stderr)
@@ -1480,25 +1894,47 @@ def main() -> int:
         log("[resume] " + json.dumps(resumed))
         controllers = phase("9 controllers", controller_phase)
         log("[controllers] " + json.dumps(controllers))
+        try:
+            cached = phase("10 cached vs streamed", cache_phase)
+            log("[cache] " + json.dumps(cached))
+        finally:
+            shutil.rmtree(CACHE_DATA, ignore_errors=True)
+            shutil.rmtree(CACHE_RUNS, ignore_errors=True)
+        try:
+            clips = phase("11 3dcnn", clip_phase)
+            log("[3dcnn] " + json.dumps(clips))
+        finally:
+            shutil.rmtree(CLIP_DATA, ignore_errors=True)
+            shutil.rmtree(CLIP_RUNS, ignore_errors=True)
+        # phase 5's split and runs, and phase 7's recording in its f32 run
+        side = phase("12 side entries", side_phase, os.path.join(TRAIN_RUNS, "f32"))
+        log("[side] " + json.dumps(side))
     finally:
         shutil.rmtree(TRAIN_DATA, ignore_errors=True)
         shutil.rmtree(TRAIN_RUNS, ignore_errors=True)
-    try:
-        cached = phase("10 cached vs streamed", cache_phase)
-        log("[cache] " + json.dumps(cached))
-    finally:
-        shutil.rmtree(CACHE_DATA, ignore_errors=True)
-        shutil.rmtree(CACHE_RUNS, ignore_errors=True)
-    try:
-        clips = phase("11 3dcnn", clip_phase)
-        log("[3dcnn] " + json.dumps(clips))
-    finally:
-        shutil.rmtree(CLIP_DATA, ignore_errors=True)
-        shutil.rmtree(CLIP_RUNS, ignore_errors=True)
+        shutil.rmtree(os.path.join(WORK, "trace"), ignore_errors=True)
+        for name in ("resnet18-seeded.pt", "predict_fold_False", "predict_fold_True"):
+            path = os.path.join(WORK, name)
+            shutil.rmtree(path, ignore_errors=True) if os.path.isdir(path) else (
+                os.remove(path) if os.path.exists(path) else None)
     # the 3D family's runs (phase 11): its gating is eager, as in the JAX
     # package, so each of them launched neither kernel
     launches_3d = {direction: {f"launches_3dcnn_{k}": v[f"{direction}_launches"] for k, v in clips.items()
                                if isinstance(v, dict) and f"{direction}_launches" in v} for direction in ("fwd", "bwd")}
+
+    # phase 12: the forward kernel 3 a batch on fold-BN serving and eval, 3·K
+    # a batch in the sweep; both kernels on the remat, stem-s2d, pretrained
+    # and profiled training; neither under SEonly or shareweight
+    side_runs = {"remat": side["remat"]["remat"], "no_remat": side["remat"]["no_remat"],
+                 "stem_s2d": side["stem"], **{k: side[k] for k in ("seonly", "shareweight", "pretrained",
+                                                                                "profiled")}}
+    side_launches = {
+        "fwd": {"launches_fold_bn_predict": side["fold_predict"]["launches"],
+                "launches_fold_bn_record": side["fold_record"]["launches"],
+                "launches_sweep_k2": side["sweep"]["launches"],
+                **{f"launches_{k}": v["fwd_launches"] for k, v in side_runs.items()}},
+        "bwd": {f"launches_{k}": v["bwd_launches"] for k, v in side_runs.items()},
+    }
 
     def bound_by(report):
         return "bytes" if all(s["bound_by"] == "bytes" for s in report["sites"].values()) else "operations"
@@ -1527,6 +1963,7 @@ def main() -> int:
         **{f"launches_{k}": v["fwd_launches"] for k, v in controllers.items()},
         **{f"launches_{k}": v["fwd_launches"] for k, v in cached.items()},
         **launches_3d["fwd"],
+        **side_launches["fwd"],
         "max_abs_err": f32["max_abs_err"],
         "max_abs_err_bf16": bf16["max_abs_err"],
         # float32, the configuration's dtype: one forward's three fusion sites at B=128
@@ -1551,6 +1988,7 @@ def main() -> int:
         **{f"launches_{k}": v["bwd_launches"] for k, v in controllers.items()},
         **{f"launches_{k}": v["bwd_launches"] for k, v in cached.items()},
         **launches_3d["bwd"],
+        **side_launches["bwd"],
         "max_abs_err": bf32["max_abs_err"],
         "max_abs_err_bf16": bbf16["max_abs_err"],
         # float32: one step's three fusion sites at B=128

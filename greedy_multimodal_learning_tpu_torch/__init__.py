@@ -16,6 +16,15 @@ MMTM model (``models/mmtm_3dcnn.py``, RGB + depth + flow clips from
 device (``data/pipeline.py``), with the fused MMTM gating forward and
 backward as hand-written CUDA kernels (``ops/mmtm_gating.py``, ``csrc/``)
 on the two-modality path and the host data helpers of ``csrc/fastio.cc``.
+
+Beside them: checkpoints of the JAX package, its ``.jax.pkl`` sidecar
+included, for serving, eval and resume (``engine/checkpoint.py``, read with
+no jax); BatchNorm folding for serving and eval (``engine/fold_bn.py``);
+K checkpoints in one pass (``eval_sweep``); the model options ``SEonly``,
+``shareweight``, ``stem_s2d``, ``remat`` and ``pretraining``; in-process
+entry runs (``run_api.run_entry``) and a traced train epoch
+(``Trainer.enable_profiling``).  Data parallelism, ``model_parallel``
+other than 1 and ``orbax_dir`` are not ported and raise.
 """
 
 __version__ = "0.1.0"

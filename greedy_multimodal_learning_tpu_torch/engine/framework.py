@@ -17,8 +17,15 @@ recorded scales and squeeze maps, per batch, MMTM and view, trimmed to the
 batch's real rows (``framework.py:270-282,539-568``); a
 ``rescale_accumulator`` takes the squeeze maps on the device instead.
 
-Not ported: the scanned eval (it served the TPU's remote link),
-``fold_bn_eval`` and the data-parallel mesh.
+A trainer built with ``fold_bn_eval`` folds the BatchNorm statistics into
+the convolutions once an eval pass and runs that pass's forwards on the
+folded tensors through ``torch.func.functional_call``; training never sees
+them (``framework.py:110-119,285-313,347-360``).  ``enable_profiling``
+traces the next train epoch with ``torch.profiler``
+(``framework.py:169-171,220-254``).
+
+Not ported: the scanned eval (it served the TPU's remote link) and the
+data-parallel mesh.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import logging
+import os
 import timeit
 from typing import Optional
 
@@ -37,6 +45,7 @@ from ..data.transforms import draw_flips, flip_shape, preprocess
 from .bdr import GroupReducer
 from .callbacks import CallbackList, ProgressionCallback, ValidationProgressionCallback
 from .controller import ControllerState, init_controller_state, random_draw
+from .fold_bn import fold_batchnorm
 from .steps import RECORD_KEYS, eval_step, make_controller_update, train_step
 from .train_state import get_learning_rate, set_learning_rate
 
@@ -115,6 +124,22 @@ def _device_maps(average_squeezemaps, device):
             for slot in average_squeezemaps]
 
 
+class _FoldedModel:
+    """``model`` called with ``tensors`` in place of its own parameters and
+    buffers of those names (``torch.func.functional_call``); every other
+    attribute is the model's."""
+
+    def __init__(self, model, tensors):
+        self.model = model
+        self.tensors = tensors
+
+    def __call__(self, *args, **kwargs):
+        return torch.func.functional_call(self.model, self.tensors, args, kwargs)
+
+    def __getattr__(self, name):
+        return getattr(self.model, name)
+
+
 class Trainer:
     def __init__(
         self,
@@ -129,6 +154,7 @@ class Trainer:
         seed: int = 777,
         average_squeezemaps=None,
         mmtm_off: bool = False,
+        fold_bn_eval: bool = False,
     ):
         self.model = model
         self.optimizer = optimizer
@@ -153,6 +179,8 @@ class Trainer:
         # analysis.ondevice_rescale.RescaleMeanAccumulator: takes the eval
         # passes' squeeze maps on the device instead of the history
         self.rescale_accumulator = None
+        self.fold_bn_eval = bool(fold_bn_eval)
+        self.profile_dir = None  # enable_profiling: the next train epoch's trace goes here
         self._skip_next_controller_reset = False
         if optimizer is None:
             return
@@ -172,6 +200,11 @@ class Trainer:
             controller_kind, nummodalities, draw=self.controller_draw,
             **{k: v for k, v in self.controller_config.items() if k in ("epsilon", "curation_windowsize", "duty_period")},
         )
+
+    def enable_profiling(self, trace_dir: str):
+        """Trace the next train epoch (CPU and, on a card, CUDA activity)
+        into one Chrome trace in ``trace_dir``; one epoch a call."""
+        self.profile_dir = trace_dir
 
     # --- handles used by callbacks ---
 
@@ -212,10 +245,12 @@ class Trainer:
         ckpt.load_weights(self.model, filepath)
 
     def restore(self, filepath):
-        """Exact resume from ``filepath`` and its ``.torch.pt`` sidecar:
-        parameters, BatchNorm statistics, MMTM buffers, optimizer state,
-        controller state and step; the next train-begin controller reset is
-        skipped (``framework.py:174-179``)."""
+        """Resume from ``filepath`` and its sidecar, the port's ``.torch.pt``
+        or the JAX package's ``.jax.pkl``
+        (:func:`~.checkpoint.load_training_state`): parameters, BatchNorm
+        statistics, MMTM buffers, optimizer state, controller state and
+        step; the next train-begin controller reset is skipped
+        (``framework.py:174-179``)."""
         state = ckpt.load_training_state(self.model, self.optimizer, filepath)
         self.ctrl = ControllerState(**{k: v.to(self.device) for k, v in state["controller"].items()})
         self.step = int(state["step"])
@@ -243,9 +278,32 @@ class Trainer:
         self.step += 1
         return out
 
+    def _start_profiler(self):
+        """A started ``torch.profiler`` when ``enable_profiling`` asked for
+        this epoch, else None."""
+        if not self.profile_dir:
+            return None
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        profiler = torch.profiler.profile(activities=activities)
+        profiler.start()
+        return profiler
+
+    def _stop_profiler(self, profiler, first_step):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        profiler.stop()
+        os.makedirs(self.profile_dir, exist_ok=True)
+        path = os.path.join(self.profile_dir, f"train_steps_{first_step}-{self.step - 1}.trace.json")
+        profiler.export_chrome_trace(path)
+        logger.info("Train epoch traced to %s", path)
+        self.profile_dir = None
+
     def _train_epoch(self, generator, steps_per_epoch, callback_list):
         records, recorded, sizes, indices = [], [], [], []
         unlock = torch.tensor(self._unlock, device=self.device)
+        profiler, first_step = self._start_profiler(), self.step
         for batch_ind, batch in _steps(generator, steps_per_epoch):
             batch_begin_time = timeit.default_timer()
             callback_list.on_batch_begin(batch_ind, {})
@@ -269,6 +327,8 @@ class Trainer:
                 batch_logs[f"acc_modal_{i}"] = out["acc_modal"][i]
             callback_list.on_batch_end(batch_ind, batch_logs)
 
+        if profiler is not None:
+            self._stop_profiler(profiler, first_step)
         outs = _fetch(records)  # the epoch's one synchronization point
         self.curated_steps += int(sum(bool(o["curated"]) for o in outs))
         sizes = np.array(sizes, np.float64)
@@ -288,6 +348,17 @@ class Trainer:
         if np.isnan(losses).any():
             self.stop_training = True
         return train_dict
+
+    def _eval_model(self):
+        """The model an eval pass runs: with ``fold_bn_eval``, the model on
+        its BatchNorm statistics folded into the convolutions, folded once
+        for the pass (the folded entries only; the MMTM buffers stay the
+        model's own and take the pass's updates)."""
+        if not self.fold_bn_eval:
+            return self.model
+        state = self.model.state_dict()
+        folded = fold_batchnorm(state)
+        return _FoldedModel(self.model, {k: v for k, v in folded.items() if v is not state[k]})
 
     def _eval_generator(self, generator, phase, *, steps=None, callback_list=None):
         """One validation or test pass with BatchNorm on its running
@@ -309,11 +380,12 @@ class Trainer:
         progress.set_model_pytoune(self)
         records, recorded, sizes, indices = [], [], [], []
         accumulator = self.rescale_accumulator
+        model = self._eval_model()
         for batch_ind, batch in _steps(generator, steps):
             batch_begin_time = timeit.default_timer()
             progress.on_batch_begin(batch_ind, {})
             size = batch["size"]
-            out = eval_step(self.model, self.ctrl, self._to_device(batch), mmtm_off=self.mmtm_off,
+            out = eval_step(model, self.ctrl, self._to_device(batch), mmtm_off=self.mmtm_off,
                             average_squeezemaps=self.average_squeezemaps)
             indices.append(np.asarray(batch["indices"])[:size])
             if accumulator is not None and "squeezedmaps_array_list" in out:

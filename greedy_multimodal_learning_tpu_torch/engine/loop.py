@@ -12,10 +12,13 @@ history and checkpoints around :meth:`Trainer.train_loop` and
   (``loop.py:154-167``),
 * the eval history goes to ``save_path/eval_history_batch/``.
 
-``resume`` continues a run of the port from ``model_last_epoch.pt`` and its
-``.torch.pt`` sidecar (``loop.py:114-139,205-270``); ``checkpoint_every``
-spaces the last-epoch checkpoints.  ``data_parallel``, ``model_parallel``
-other than 1, ``orbax_dir`` and ``fold_bn_eval`` are not ported and raise.
+``resume`` continues a run from ``model_last_epoch.pt`` and its sidecar,
+the port's ``.torch.pt`` or the JAX package's ``.jax.pkl``
+(``loop.py:114-139,205-270``); ``checkpoint_every`` spaces the last-epoch
+checkpoints.  ``fold_bn_eval`` runs every eval pass with the BatchNorm
+statistics folded into the convolutions (:mod:`.fold_bn`).
+``data_parallel``, ``model_parallel`` other than 1 and ``orbax_dir`` are
+not ported and raise.
 """
 
 from __future__ import annotations
@@ -151,7 +154,7 @@ def training_loop(
     fresh otherwise."""
     _raise_unported(**{
         "training_loop.data_parallel": data_parallel, "training_loop.orbax_dir": orbax_dir,
-        "training_loop.fold_bn_eval": fold_bn_eval, "training_loop.model_parallel": model_parallel != 1,
+        "training_loop.model_parallel": model_parallel != 1,
     })
     callbacks = list(custom_callbacks)
     os.makedirs(save_path, exist_ok=True)
@@ -160,10 +163,10 @@ def training_loop(
     history_pkl_path = os.path.join(save_path, "history.pkl")
     last_ckpt = os.path.join(save_path, "model_last_epoch.pt")
     resuming = bool(resume) and os.path.exists(last_ckpt) and os.path.exists(history_csv_path)
-    if resuming and not os.path.exists(f"{last_ckpt}.torch.pt"):
+    if resuming and not any(os.path.exists(f"{last_ckpt}{ext}") for ext in (".torch.pt", ".jax.pkl")):
         raise FileNotFoundError(
-            f"training_loop.resume: {last_ckpt}.torch.pt is missing; the port resumes only from the sidecar "
-            "its own save_weights writes (a run of the JAX package resumes in the JAX package)"
+            f"training_loop.resume: {last_ckpt}.torch.pt (the port's sidecar) and {last_ckpt}.jax.pkl (the JAX "
+            "package's) are both missing"
         )
 
     H = _load_history(save_path) if resuming else {}
@@ -193,6 +196,7 @@ def training_loop(
         verbose=verbose,
         device=device,
         seed=seed,
+        fold_bn_eval=fold_bn_eval,
     )
     for clbk in callbacks:
         clbk.set_save_path(save_path)
@@ -264,8 +268,7 @@ def evalution_loop(  # [sic] the reference's name, kept for the gin surface
     ``eval_history_batch/rescale_means.pkl`` (``loop.py:350-373,401-428``).
     Returns the :class:`Trainer`."""
     _raise_unported(**{
-        "evalution_loop.data_parallel": data_parallel, "evalution_loop.fold_bn_eval": fold_bn_eval,
-        "evalution_loop.model_parallel": model_parallel != 1,
+        "evalution_loop.data_parallel": data_parallel, "evalution_loop.model_parallel": model_parallel != 1,
     })
     trainer = Trainer(
         model,
@@ -273,6 +276,7 @@ def evalution_loop(  # [sic] the reference's name, kept for the gin surface
         device=device,
         average_squeezemaps=average_squeezemaps,
         mmtm_off=mmtm_off,
+        fold_bn_eval=fold_bn_eval,
     )
     trainer.load_weights(pretrained_weights_path)
 

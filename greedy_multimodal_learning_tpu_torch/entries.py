@@ -1,7 +1,10 @@
 """The configurable entries (``greedy_multimodal_learning_tpu/entries.py``):
 ``train`` (``:39-91``), driven by ``python -m
 greedy_multimodal_learning_tpu_torch.train``, and ``eval_`` (``:94-157``),
-driven by ``python -m greedy_multimodal_learning_tpu_torch.eval``."""
+driven by ``python -m greedy_multimodal_learning_tpu_torch.eval`` or, in
+process, by :func:`~.run_api.run_entry`.  With ``MMTM_MVCNN.pretraining``
+both start every tower from a local torchvision ResNet-18 trunk after the
+seeded initialization (``entries.py:69-75,139-143``)."""
 
 from __future__ import annotations
 
@@ -14,6 +17,7 @@ from .analysis import get_rescale_weights
 from .bootstrap import build_model_and_loaders, init_model, resolve_device, select_split
 from .engine import callbacks as avail_callbacks
 from .engine import evalution_loop, make_optimizer, training_loop
+from .models import apply_pretrained_trunks, resolve_pretrained_path
 
 logger = logging.getLogger(__name__)
 
@@ -37,6 +41,16 @@ def set_matmul_precision(precision):
     torch.backends.cudnn.allow_tf32 = allow
 
 
+def init_with_pretrained(net, seed, device):
+    """The seeded model on ``device``, its towers' trunks then replaced by
+    the ``MMTM_MVCNN.pretraining`` weights when that is on."""
+    net = init_model(net, seed, device)
+    path = resolve_pretrained_path()
+    if path:
+        apply_pretrained_trunks(net, path, net.num_towers)
+    return net
+
+
 def construct_callbacks(names, where="train.callbacks"):
     """Callbacks by name; an unknown name raises KeyError (``entries.py:60-65``)."""
     out = []
@@ -57,7 +71,7 @@ def train(save_path, wd=0.0, lr=0.1, momentum=0.0, batch_size=8, callbacks=(), s
     set_matmul_precision(matmul_precision)
     net, (train_loader, valid_loader, test_loader) = build_model_and_loaders(model, batch_size, device)
     custom = construct_callbacks(callbacks)
-    net = init_model(net, seed, device)
+    net = init_with_pretrained(net, seed, device)
     optimizer = make_optimizer(net.parameters(), lr=lr, momentum=momentum, weight_decay=wd)
     return training_loop(
         model=net,
@@ -104,7 +118,7 @@ def eval_(save_path, target_data_split="test", pretrained_weights_path=None, bat
             mmtmpositions=4,
         )
     custom = construct_callbacks(callbacks, "eval_.callbacks")
-    net = init_model(net, seed, device)
+    net = init_with_pretrained(net, seed, device)
     return evalution_loop(
         model=net,
         config=cfg.CONFIG,

@@ -7,13 +7,21 @@ dtype; convolution and linear weights are cast to the activation's dtype at
 use, as flax's ``dtype=`` does.  BatchNorm computes in float32 and casts
 back to the compute dtype (``layers.py:83-120``); in train mode its batch
 statistics cover the unmasked rows only, over every axis but the channel.
+
+:func:`rematerialize` runs a block under ``torch.utils.checkpoint`` (flax's
+``nn.remat``): its activations are recomputed in the backward pass instead
+of kept, and the recompute leaves the BatchNorm running statistics alone,
+so they take one update a forward, as with flax.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 
 import torch
+import torch.utils.checkpoint
 import torch.nn.functional as F
 from torch import nn
 
@@ -50,6 +58,32 @@ class Linear(nn.Linear):
         return F.linear(x, self.weight.to(x.dtype)) + self.bias.to(x.dtype)
 
 
+# Set on the thread that recomputes a checkpointed block (the autograd
+# engine's, during the backward pass).
+_RECOMPUTE = threading.local()
+
+
+@contextlib.contextmanager
+def _recomputing():
+    previous = getattr(_RECOMPUTE, "active", False)
+    _RECOMPUTE.active = True
+    try:
+        yield
+    finally:
+        _RECOMPUTE.active = previous
+
+
+def _remat_contexts():
+    return contextlib.nullcontext(), _recomputing()
+
+
+def rematerialize(block, *args):
+    """``block(*args)`` with its activations recomputed in the backward pass
+    (``torch.utils.checkpoint``, non-reentrant); the recompute skips the
+    masked BatchNorm's running-statistics update."""
+    return torch.utils.checkpoint.checkpoint(block, *args, use_reentrant=False, context_fn=_remat_contexts)
+
+
 class _MaskedBatchNorm:
     """``TorchBatchNorm``'s semantics (``layers.py:83-120``) for a torch
     BatchNorm (eps 1e-5, momentum 0.1) on (B, C, *spatial) maps; the
@@ -63,7 +97,8 @@ class _MaskedBatchNorm:
       non-zero (all rows without a mask) and every spatial position, in
       float32; the normalize uses the biased variance, the running variance
       takes the unbiased one ``var * n / max(n - 1, 1)``.  ``F.batch_norm``
-      cannot mask, so this is plain torch ops."""
+      cannot mask, so this is plain torch ops.  A :func:`rematerialize` recompute
+      does not update the running statistics a second time."""
 
     def forward(self, x, train: bool = False, mask=None):
         if not train:
@@ -77,13 +112,17 @@ class _MaskedBatchNorm:
         mean = (xf * m).sum(dim=dims) / n
         centered = xf - mean.view(per_channel)
         var = (centered.square() * m).sum(dim=dims) / n
-        with torch.no_grad():
-            unbiased = var * (n / torch.clamp(n - 1.0, min=1.0))
-            self.running_mean.mul_(1.0 - self.momentum).add_(self.momentum * mean)
-            self.running_var.mul_(1.0 - self.momentum).add_(self.momentum * unbiased)
+        if not getattr(_RECOMPUTE, "active", False):
+            self._update_running(mean, var, n)
         inv = torch.rsqrt(var + self.eps) * self.weight
         y = centered * inv.view(per_channel) + self.bias.view(per_channel)
         return y.to(x.dtype)
+
+    @torch.no_grad()
+    def _update_running(self, mean, var, n):
+        unbiased = var * (n / torch.clamp(n - 1.0, min=1.0))
+        self.running_mean.mul_(1.0 - self.momentum).add_(self.momentum * mean)
+        self.running_var.mul_(1.0 - self.momentum).add_(self.momentum * unbiased)
 
 
 class BatchNorm2d(_MaskedBatchNorm, nn.BatchNorm2d):

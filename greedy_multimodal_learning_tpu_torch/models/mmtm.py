@@ -21,8 +21,12 @@ it in float32 and differentiates with the fused backward.  On CUDA tensors
 ``use_pallas=True`` means the CUDA kernels, forward and backward.
 
 The flow-off branch takes precedence over the kernel branch, as in the JAX
-package: it runs no kernel.  ``SEonly`` and ``shareweight`` are not ported yet and
-raise.
+package: it runs no kernel.  Two variants (``mmtm.py:74-102,138-143``):
+``SEonly`` squeezes each modality alone (``fc_squeeze_<name>``, no
+cross-modal squeeze; its branch comes first, so it ignores
+``turnoff_cross_modal_flow``), and ``shareweight`` shares one
+``fc_excite`` among the modalities.  Neither takes the kernel path: the
+kernels compute the joint squeeze with one excitation a modality.
 """
 
 from __future__ import annotations
@@ -60,8 +64,9 @@ def _static_false(flag) -> bool:
 class MMTM(nn.Module):
     """N-modality MMTM fusion with running-average gate state.
 
-    Attribute names (``fc_squeeze``, ``fc_<name>``, ``running_avg_<name>``,
-    ``step``) are the JAX package's, so its parameters load by name."""
+    Attribute names (``fc_squeeze`` or ``fc_squeeze_<name>``, ``fc_<name>``
+    or ``fc_excite``, ``running_avg_<name>``, ``step``) are the JAX
+    package's, so its parameters load by name."""
 
     def __init__(
         self,
@@ -76,26 +81,38 @@ class MMTM(nn.Module):
         super().__init__()
         if len(dims) != len(modality_names):
             raise ValueError(f"{len(dims)} dims for {len(modality_names)} modality names")
-        if SEonly or shareweight:
-            raise NotImplementedError("MMTM_mitigate.SEonly and .shareweight are not ported yet (see ROADMAP.md)")
+        if shareweight and len(set(dims)) != 1:
+            raise ValueError(f"MMTM_mitigate.shareweight needs equal dims, got {list(dims)}")
         self.dims = list(dims)
         self.modality_names = list(modality_names)
+        self.SEonly = SEonly
+        self.shareweight = shareweight
         self.bug_compat = bug_compat
         self.use_pallas = use_pallas
         dim_out = int(2 * sum(dims) / ratio)
-        self.fc_squeeze = Linear(sum(dims), dim_out)
-        for d, name in zip(dims, modality_names):
-            setattr(self, f"fc_{name}", Linear(dim_out, d))
+        if SEonly:
+            for d, name in zip(dims, modality_names):
+                setattr(self, f"fc_squeeze_{name}", Linear(d, dim_out))
+        else:
+            self.fc_squeeze = Linear(sum(dims), dim_out)
+        if shareweight:
+            self.fc_excite = Linear(dim_out, dims[0])
+        else:
+            for d, name in zip(dims, modality_names):
+                setattr(self, f"fc_{name}", Linear(dim_out, d))
         for d, name in zip(dims, modality_names):
             self.register_buffer(f"running_avg_{name}", torch.zeros(d))
         self.register_buffer("step", torch.zeros(()))
 
     def _excite(self, i: int):
-        return getattr(self, f"fc_{self.modality_names[i]}")
+        return self.fc_excite if self.shareweight else getattr(self, f"fc_{self.modality_names[i]}")
 
     def _use_kernel(self, features) -> bool:
+        """The JAX package's kernel guard (``mmtm.py:168-182``)."""
         return (
             self.use_pallas
+            and not self.SEonly
+            and not self.shareweight
             and len(features) == 2
             and len(set(self.dims)) == 1
             and features[0].dim() >= 3
@@ -149,7 +166,13 @@ class MMTM(nn.Module):
             ]
         else:
             squeezes = [f.mean(dim=tuple(range(2, f.dim())), dtype=torch.float32) for f in features]
-            if not turnoff_cross_modal_flow:
+            if self.SEonly:
+                gates = [
+                    torch.sigmoid(self._excite(i)(torch.relu(
+                        getattr(self, f"fc_squeeze_{name}")(squeezes[i].to(dtype)))).float())
+                    for i, name in enumerate(self.modality_names)
+                ]
+            elif not turnoff_cross_modal_flow:
                 excitation = torch.relu(self.fc_squeeze(torch.cat(squeezes, dim=1).to(dtype)))
                 gates = [torch.sigmoid(self._excite(i)(excitation).float()) for i in range(n)]
             elif average_squeezemaps is None:

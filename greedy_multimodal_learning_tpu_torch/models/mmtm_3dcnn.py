@@ -43,6 +43,7 @@ class MMTM3DCNN(nn.Module):
         saving_mmtm_scales: bool = False,
         saving_mmtm_squeeze_array: bool = False,
         dtype: torch.dtype = torch.float32,
+        remat: bool = False,
     ):
         super().__init__()
         self.num_towers = num_towers
@@ -51,7 +52,7 @@ class MMTM3DCNN(nn.Module):
         self.saving_mmtm_squeeze_array = saving_mmtm_squeeze_array
         self.dtype = dtype
         for i in range(num_towers):
-            setattr(self, f"net_view_{i}", ResNet3D18Trunk(nclasses, width_multiplier))
+            setattr(self, f"net_view_{i}", ResNet3D18Trunk(nclasses, width_multiplier, remat=remat))
         for li, width in FUSION_WIDTHS.items():
             mmtm = MMTM(
                 dims=[int(width * width_multiplier)] * num_towers,
@@ -109,11 +110,8 @@ def build_3dcnn_from_config(dtype=None) -> MMTM3DCNN:
     """Construct the model from the ``MMTM_3DCNN`` gin surface
     (``mmtm_3dcnn.py:99-115``).  The MMTM options are this scope's own
     fields: ``bug_compat`` defaults to False here (the reference's bug is
-    two-modality specific), and ``MMTM_mitigate`` is not read.  Options the
-    port does not carry yet raise."""
+    two-modality specific), and ``MMTM_mitigate`` is not read."""
     q = lambda p, d: cfg.query("MMTM_3DCNN", p, d)
-    if q("remat", False):
-        raise NotImplementedError("MMTM_3DCNN.remat is not ported yet (see ROADMAP.md)")
     names = q("modality_names", list(DEFAULT_MODALITY_NAMES))
     return MMTM3DCNN(
         nclasses=int(q("nclasses", 25)),
@@ -125,4 +123,5 @@ def build_3dcnn_from_config(dtype=None) -> MMTM3DCNN:
         saving_mmtm_scales=bool(q("saving_mmtm_scales", False)),
         saving_mmtm_squeeze_array=bool(q("saving_mmtm_squeeze_array", False)),
         dtype=compute_dtype("MMTM_3DCNN", dtype),
+        remat=bool(q("remat", False)),
     )

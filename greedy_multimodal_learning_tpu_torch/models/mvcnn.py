@@ -5,10 +5,15 @@ towers, MMTM fusion after layer groups 2/3/4 at widths 128/256/512 (ratio
 
 The input keeps the JAX package's (B, num_towers, H, W, C) layout; each
 tower runs on NCHW maps in ``torch.channels_last`` memory.
+
+``MMTM_MVCNN.pretraining=True`` starts every tower from the trunk of a
+local torchvision ResNet-18 state_dict (:func:`resolve_pretrained_path`,
+:func:`apply_pretrained_trunks`; ``mvcnn.py:126-190``).
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Sequence
 
 import torch
@@ -51,6 +56,8 @@ class MMTMMVCNN(nn.Module):
         saving_mmtm_scales: bool = False,
         saving_mmtm_squeeze_array: bool = False,
         dtype: torch.dtype = torch.float32,
+        stem_s2d: bool = False,
+        remat: bool = False,
     ):
         super().__init__()
         self.num_towers = num_towers
@@ -59,7 +66,7 @@ class MMTMMVCNN(nn.Module):
         self.saving_mmtm_squeeze_array = saving_mmtm_squeeze_array
         self.dtype = dtype
         for i in range(num_towers):
-            setattr(self, f"net_view_{i}", ResNet18Trunk(nclasses))
+            setattr(self, f"net_view_{i}", ResNet18Trunk(nclasses, stem_s2d=stem_s2d, remat=remat))
         for li, w in FUSION_WIDTHS.items():
             mmtm = MMTM(
                 dims=[w] * num_towers,
@@ -131,18 +138,53 @@ def compute_dtype(scope: str, dtype=None) -> torch.dtype:
     return torch_dtype
 
 
+def resolve_pretrained_path():
+    """The trunk weights of ``MMTM_MVCNN.pretraining=True``: the path bound to
+    ``MMTM_MVCNN.pretrained_weights_path``, else the
+    ``GML_PRETRAINED_RESNET18`` environment variable (nothing is
+    downloaded).  None when pretraining is off; raises when it is on with no
+    path or a missing file (``mvcnn.py:126-151``)."""
+    if not cfg.query("MMTM_MVCNN", "pretraining", False):
+        return None
+    path = cfg.query("MMTM_MVCNN", "pretrained_weights_path", None) or os.environ.get("GML_PRETRAINED_RESNET18")
+    if not path:
+        raise NotImplementedError(
+            "MMTM_MVCNN.pretraining=True needs local torchvision resnet18 weights "
+            "(this environment cannot download them): set the gin binding "
+            "MMTM_MVCNN.pretrained_weights_path or the GML_PRETRAINED_RESNET18 env var"
+        )
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"pretrained trunk weights not found: {path}")
+    return path
+
+
+@torch.no_grad()
+def apply_pretrained_trunks(model, path, num_towers):
+    """Load a torchvision resnet18 state_dict (bare, or under ``state_dict``
+    or ``model``; read with ``weights_only=True``) into the trunk of every
+    tower ``net_view_<i>``: each starts from the same trunk, its ``fc`` head
+    keeps its initialization (``mvcnn.py:154-189``).  Keys a tower lacks are
+    ignored; a shape mismatch, or a file that matches no key, raises."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(sd, dict) and "state_dict" in sd:
+        sd = sd["state_dict"]
+    if isinstance(sd, dict) and "model" in sd:
+        sd = sd["model"]
+    trunk = {k: v for k, v in sd.items() if not k.startswith("fc.") and not k.endswith("num_batches_tracked")}
+    for i in range(num_towers):
+        _, unexpected = getattr(model, f"net_view_{i}").load_state_dict(trunk, strict=False)
+        if len(unexpected) == len(trunk):
+            raise ValueError(f"{path}: none of its {len(trunk)} trunk entries names a parameter of net_view_{i}")
+    return model
+
+
 def build_model_from_config(dtype=None) -> MMTMMVCNN:
     """Construct the model from the ``MMTM_MVCNN`` and ``MMTM_mitigate`` gin
-    surface.  Options the port does not carry yet raise."""
+    surface (``mvcnn.py:192-218``).  ``pretraining`` is checked here (a
+    missing path or file raises early) and applied by the entries after the
+    seeded initialization."""
     q = lambda p, d: cfg.query("MMTM_MVCNN", p, d)
-    if q("pretraining", False):
-        raise NotImplementedError(
-            "MMTM_MVCNN.pretraining=True needs local torchvision resnet18 weights, which the port "
-            "does not load yet; load a checkpoint with predict_.pretrained_weights_path instead"
-        )
-    for option in ("stem_s2d", "remat"):
-        if q(option, False):
-            raise NotImplementedError(f"MMTM_MVCNN.{option} is not ported yet (see ROADMAP.md)")
+    resolve_pretrained_path()
     mk = mmtm_config_kwargs()
     num_towers = int(q("num_views", 2))
     names = cfg.query("Bias_Mitigation_Strong", "MMTMnames", None) or list(DEFAULT_MODALITY_NAMES)
@@ -160,4 +202,6 @@ def build_model_from_config(dtype=None) -> MMTMMVCNN:
         saving_mmtm_scales=bool(q("saving_mmtm_scales", False)),
         saving_mmtm_squeeze_array=bool(q("saving_mmtm_squeeze_array", False)),
         dtype=torch_dtype,
+        stem_s2d=bool(q("stem_s2d", False)),
+        remat=bool(q("remat", False)),
     )

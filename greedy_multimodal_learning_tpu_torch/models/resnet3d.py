@@ -8,7 +8,8 @@ in the first block of layer groups 2-4.  Module names are the 2-D trunk's
 the state_dict naming the JAX package writes for this family too
 (``engine/checkpoint.py:68-82``).  Activations are (B, C, T, H, W) tensors
 in ``torch.channels_last_3d`` memory, the JAX package's (B, T, H, W, C)
-layout underneath.
+layout underneath.  ``remat`` recomputes each block's activations in the
+backward pass, as the 2-D trunk's (``resnet3d.py:73``).
 """
 
 from __future__ import annotations
@@ -40,8 +41,9 @@ class ResNet3D18Trunk(nn.Module):
 
     WIDTHS = ResNet18Trunk.WIDTHS
 
-    def __init__(self, nclasses: int = 25, width_multiplier: float = 1.0):
+    def __init__(self, nclasses: int = 25, width_multiplier: float = 1.0, remat: bool = False):
         super().__init__()
+        self.remat = remat
         w = lambda c: int(c * width_multiplier)
         self.conv1 = Conv3d(3, w(64), (3, 7, 7), (1, 2, 2), (1, 3, 3), bias=False)
         self.bn1 = BatchNorm3d(w(64))

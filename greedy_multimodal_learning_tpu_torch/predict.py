@@ -8,6 +8,10 @@ Loads a checkpoint, runs the eval forward over the selected split on the
 GPU (bind ``predict_.device='cpu'`` for the CPU), and writes
 ``SAVE_PATH/predictions.csv`` with one row per sample (index, model name,
 true class, predicted class, confidence) plus a throughput line to stdout.
+A run of the JAX package serves as it is: the checkpoint's ``.jax.pkl``,
+when there is one, gives the weights and the MMTM buffers.
+``predict_.fold_bn=True`` folds the BatchNorm statistics into the
+convolutions before serving (:mod:`.engine.fold_bn`).
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ import time
 
 from . import config as cfg
 from .bootstrap import build_model_and_loaders, init_model, resolve_device, select_split
+from .engine.fold_bn import fold_batchnorm
 from .engine.framework import Trainer
 from .utils import configure_logger, gin_wrap
 
@@ -38,8 +43,6 @@ def predict_(
     """Run inference over a split and write predictions.csv.
 
     Returns (csv_path, the dict of :meth:`Trainer.predict`)."""
-    if fold_bn:
-        raise NotImplementedError("predict_.fold_bn is not ported yet (see ROADMAP.md)")
     device = resolve_device(device)
     model, loaders = build_model_and_loaders(model, batch_size, device)
     target = select_split(loaders, target_data_split)
@@ -48,6 +51,9 @@ def predict_(
     trainer = Trainer(model, nummodalities=model.num_towers, device=device)
     if pretrained_weights_path:
         trainer.load_weights(pretrained_weights_path)
+    if fold_bn:
+        model.load_state_dict(fold_batchnorm(model.state_dict()))
+        logger.info("Serving with BatchNorm folded into the convolutions")
 
     t0 = time.time()
     out = trainer.predict(target)

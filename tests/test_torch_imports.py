@@ -26,7 +26,7 @@ for name in names:
 import chip_smoke
 forbidden = {forbidden!r}
 bad = sorted(m for m in sys.modules if m.split(".")[0] in forbidden)
-print(len(names), bad)
+print(len(names), bad, names)
 sys.exit(1 if bad else 0)
 """
 
@@ -46,9 +46,12 @@ def test_importing_the_port_loads_no_jax():
     assert r.returncode == 0, r.stdout + r.stderr
     n_modules = int(r.stdout.split()[0])
     # the serving and training slices' modules, the analysis package, the eval
-    # entry, the host library's loader (utils.native) and the 3D family's
-    # models and clip data
-    assert n_modules >= 42, r.stdout
+    # entry, the host library's loader (utils.native), the 3D family's models
+    # and clip data, and the side entries: BatchNorm folding, the sweep and
+    # its entry, run_api
+    assert n_modules >= 46, r.stdout
+    for name in ("engine.fold_bn", "engine.sweep", "eval_sweep", "run_api"):
+        assert f"greedy_multimodal_learning_tpu_torch.{name}" in r.stdout, name
 
 
 @pytest.mark.parametrize(

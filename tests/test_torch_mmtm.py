@@ -148,8 +148,15 @@ def test_flow_off_matches_jax(use_pallas):
         _run_torch(tm, feats, state_out={}, turnoff_cross_modal_flow=True)
 
 
-def test_unported_modes_raise():
-    with pytest.raises(NotImplementedError):
-        MMTM(dims=[C, C], SEonly=True)
-    with pytest.raises(NotImplementedError):
-        MMTM(dims=[C, C], shareweight=True)
+@pytest.mark.parametrize("variant", [dict(SEonly=True), dict(shareweight=True), dict(SEonly=True, shareweight=True)],
+                         ids=["SEonly", "shareweight", "SEonly_shareweight"])
+def test_variants_build_with_the_jax_names(variant):
+    """``SEonly`` and ``shareweight`` build, and their state_dict keys are the
+    ones ``state_dict_from_jax`` gives the JAX module's variables (a strict
+    load); ``tests/test_torch_options.py`` runs them against the JAX module."""
+    jm = JaxMMTM(dims=[C, C], **variant)
+    variables = jm.init(jax.random.PRNGKey(0), [jnp.asarray(f) for f in _features(0)])
+    want = state_dict_from_jax(variables["params"], {}, variables["mmtm"])
+    tm = MMTM(dims=[C, C], **variant)
+    assert sorted(tm.state_dict()) == sorted(want)
+    tm.load_state_dict(want, strict=True)

@@ -12,7 +12,8 @@ row:
   carried by ``state_dict_from_jax`` (5-D kernels transposed);
 * 3D checkpoints across the packages in both directions, with no missing key;
 * ``make_synthetic_nvgesture`` writes the JAX package's files byte for byte;
-* ``remat=True`` raises in both families;
+* ``remat=True`` builds in both families and its train step is the step
+  without it;
 * the entry's model dispatch and its channels-last-3d memory format."""
 
 import filecmp
@@ -37,7 +38,7 @@ from greedy_multimodal_learning_tpu_torch import config as port_cfg
 from greedy_multimodal_learning_tpu_torch.bootstrap import build_model_and_loaders, init_model
 from greedy_multimodal_learning_tpu_torch.data.nvgesture import make_synthetic_nvgesture
 from greedy_multimodal_learning_tpu_torch.data.transforms import draw_flips, flip_shape, preprocess
-from greedy_multimodal_learning_tpu_torch.engine import load_weights, save_weights, state_dict_from_jax
+from greedy_multimodal_learning_tpu_torch.engine import Trainer, load_weights, make_optimizer, save_weights, state_dict_from_jax
 from greedy_multimodal_learning_tpu_torch.models import (
     BatchNorm3d,
     init_parameters,
@@ -357,14 +358,32 @@ def test_synthetic_clips_are_the_jax_packages_files(tmp_path):
     assert filecmp.cmp(tmp_path / "jax" / "metadata.json", tmp_path / "port" / "metadata.json", shallow=False)
 
 
-@pytest.mark.parametrize("scope, build", [("MMTM_MVCNN", build_model_from_config),
-                                          ("MMTM_3DCNN", build_3dcnn_from_config)])
-def test_remat_raises(scope, build):
-    """``remat`` is not carried yet: a recompute would run the train-mode
-    BatchNorm's running-statistics update twice."""
+@pytest.mark.parametrize("scope, build, shape", [
+    ("MMTM_MVCNN", build_model_from_config, (4, 2, 32, 32, 3)),
+    ("MMTM_3DCNN", build_3dcnn_from_config, (4, M, T, IMG_TRAIN, IMG_TRAIN, 3)),
+])
+def test_remat_builds_and_steps_as_without(scope, build, shape):
+    """``<scope>.remat = True`` builds every tower with per-block remat; one
+    train step equals the step without remat on the same weights (the
+    recompute leaves the BatchNorm statistics alone)."""
+    port_cfg.parse_config(f"{scope}.nclasses = {NC}\n{scope}.width_multiplier = {WIDTH}" if scope == "MMTM_3DCNN"
+                          else f"{scope}.nclasses = {NC}")
+    plain = init_model(build(), 0, "cpu")
     port_cfg.parse_config(f"{scope}.remat = True")
-    with pytest.raises(NotImplementedError, match=f"{scope}.remat"):
-        build()
+    remat = init_model(build(), 1, "cpu")
+    assert all(t.remat for t in remat.towers) and not any(t.remat for t in plain.towers)
+    remat.load_state_dict(plain.state_dict())
+    rng = np.random.default_rng(4)
+    batch = {"images": torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)),
+             "labels": torch.from_numpy(rng.integers(0, NC, shape[0]).astype(np.int32)), "mask": torch.from_numpy(MASK)}
+    flips = torch.from_numpy(rng.random(flip_shape(shape)) < 0.5)
+    for model in (plain, remat):
+        trainer = Trainer(model, make_optimizer(model.parameters(), lr=0.05), nummodalities=model.num_towers,
+                          device="cpu")
+        trainer.train_batch(batch, flips, torch.tensor(True))
+    want = plain.state_dict()
+    for key, value in remat.state_dict().items():
+        np.testing.assert_allclose(value.double().numpy(), want[key].double().numpy(), rtol=1e-6, atol=1e-9, err_msg=key)
 
 
 def test_the_entry_builds_the_3d_family(tmp_path):
