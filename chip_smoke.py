@@ -123,10 +123,28 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    an epoch; (h) ``Trainer.enable_profiling`` over an epoch: one trace that
    names both gating kernels.  Every run finite, every artifact written,
    each split resident on the card; samples/s of each run;
-13. a ``{"kernels": [...]}`` JSON line (with the launch counts of each 3D
-   run, all 0, and of each phase-12 run), the ``nvidia-smi`` line, and
-   last ``{"ok": true, "device": {...}}``.  Each phase's seconds are
-   logged.
+13. data parallelism on the 2-D family at full width (224², 2 views, 40
+   classes, ``configs/training_dp_v5e8.gin``'s global batch of 256 at lr
+   0.4) in phase 5's split: (a) the ``train`` entry with
+   ``configs/training_guided.gin#configs/training_dp_v5e8.gin`` at world 1
+   (a one-rank NCCL group, bf16) against the same bindings with
+   ``training_loop.data_parallel=False``, cuDNN deterministic, two epochs:
+   the same history, every tensor bit-identical, the launches of phase 5's
+   rule, the collectives of each train step (> 0); (b) two ranks sharing
+   cuda:0 in a gloo group (NCCL refuses two ranks on one card) against one
+   process, f32, TF32 off: three guided steps, each from the one process's
+   start, the last with the second rank's rows all padding: per tensor
+   within ``STEP_TOL`` of the update (L2), the same curation decisions,
+   losses within rtol 1e-4, both ranks' states identical, 3 forward and 3
+   backward launches a step on each rank; (c) the recording ``eval_`` with
+   ``evalution_loop.data_parallel`` at the two ranks against one process:
+   every index once in the one process's order, the maps within the
+   kernel's ``sq`` tolerance.  Samples/s of (a) both ways and of (b), the
+   latter for correctness only (gloo goes through the host);
+14. a ``{"kernels": [...]}`` JSON line (with the launch counts of each 3D
+   run, all 0, of each phase-12 run and of phase 13's runs and ranks), the
+   ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  Each
+   phase's seconds are logged.
 
 Scratch files go to ``smoke_out/`` in the checkout (git-ignored); the
 synthetic splits, checkpoints, training and eval runs are removed at exit.
@@ -137,6 +155,9 @@ from __future__ import annotations
 import contextlib
 import copy
 import csv
+import dataclasses
+import datetime
+import hashlib
 import io
 import json
 import os
@@ -149,16 +170,18 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from greedy_multimodal_learning_tpu_torch import config as cfg
+from greedy_multimodal_learning_tpu_torch import parallel
 from greedy_multimodal_learning_tpu_torch.analysis import get_rescale_weights
 from greedy_multimodal_learning_tpu_torch.bootstrap import init_model
 from greedy_multimodal_learning_tpu_torch.data.pipeline import DeviceCachePipeline
 from greedy_multimodal_learning_tpu_torch.data.nvgesture import make_synthetic_nvgesture
 from greedy_multimodal_learning_tpu_torch.data.synthetic import make_synthetic_modelnet
-from greedy_multimodal_learning_tpu_torch.data.transforms import preprocess
+from greedy_multimodal_learning_tpu_torch.data.transforms import flip_shape, preprocess
 from greedy_multimodal_learning_tpu_torch.engine import Trainer, load_weights, make_optimizer
-from greedy_multimodal_learning_tpu_torch.engine.controller import random_draw
+from greedy_multimodal_learning_tpu_torch.engine.controller import ControllerState, random_draw
 from greedy_multimodal_learning_tpu_torch.engine.fold_bn import fold_batchnorm
 from greedy_multimodal_learning_tpu_torch.engine.sweep import eval_sweep
 from greedy_multimodal_learning_tpu_torch.entries import eval_, train
@@ -174,6 +197,7 @@ from greedy_multimodal_learning_tpu_torch.ops.mmtm_gating import (
     mmtm_gating_bwd_plain,
     mmtm_gating_plain,
 )
+from greedy_multimodal_learning_tpu_torch.parallel.launch import run_ranks
 from greedy_multimodal_learning_tpu_torch.predict import predict_
 from greedy_multimodal_learning_tpu_torch.run_api import run_entry
 
@@ -893,14 +917,14 @@ def eval_rate(tag, save_path, rows, fwd, wall, modalities=2):
     return {"samples_per_s": rate, "launches": fwd, **metrics}
 
 
-def recorded_maps(tag, save_path, rows):
+def recorded_maps(tag, save_path, rows, batch=BATCH):
     """The recording's squeeze maps, [MMTM][view] (rows, C) in dataset order,
     after checking the pickle's nesting (batches x 3 MMTMs x 2 views of
     (real rows, C) float32) and its indices."""
     with open(os.path.join(save_path, "eval_history_batch", "history.pickle"), "rb") as f:
         H = pickle.load(f)
     batches = H["test_squeezedmaps_array_list"][0]
-    want_rows = [min(BATCH, rows - s) for s in range(0, rows, BATCH)]
+    want_rows = [min(batch, rows - s) for s in range(0, rows, batch)]
     shapes = [[[v.shape for v in m] for m in b] for b in batches]
     want = [[[(r, c)] * 2 for c in FUSION_CHANNELS] for r in want_rows]
     if shapes != want or any(v.dtype != np.float32 or not np.isfinite(v).all() for b in batches for m in b for v in m):
@@ -1846,6 +1870,355 @@ def side_phase(run_dir):
     return report
 
 
+# ---- phase 13 helpers ------------------------------------------------------------
+
+
+# configs/training_dp_v5e8.gin: the global batch of 256 at lr 0.4, bf16
+DP_CONFIGS = ["configs/training_guided.gin", "configs/training_dp_v5e8.gin"]
+DP_BATCH, DP_LR, DP_RANKS = 256, 0.4, 2
+DP_BINDINGS = [b for b in TRAIN_BINDINGS if not b.startswith("train.batch_size")]
+DP_STEPS = 3  # (b): guided steps, the last curating modality 1 with the second rank's rows all padding
+DP_GROUP_TIMEOUT = datetime.timedelta(seconds=300)
+DP_RUN_TIMEOUT = 400.0  # seconds for both ranks of (b) and (c)
+DP_TIME_COLUMNS = ("time", "epoch_begin_time", "train_samples_per_sec")
+DP_LOSS_RTOL = 1e-4  # (b): a step's loss, two ranks against one process (tests/test_parallel.py's)
+
+
+@contextlib.contextmanager
+def collectives_per_step(counts):
+    """Appends the collectives of each ``Trainer.train_batch`` call made
+    inside the block to ``counts``."""
+    original = Trainer.train_batch
+
+    def spy(self, *args, **kwargs):
+        before = parallel.collective_count()
+        out = original(self, *args, **kwargs)
+        counts.append(parallel.collective_count() - before)
+        return out
+
+    Trainer.train_batch = spy
+    try:
+        yield counts
+    finally:
+        Trainer.train_batch = original
+
+
+def history_rows(save_path):
+    with open(os.path.join(save_path, "history.csv")) as f:
+        rows = list(csv.DictReader(f))
+    return rows, [{k: v for k, v in r.items() if k not in DP_TIME_COLUMNS} for r in rows]
+
+
+def dp_world1():
+    """(a) ``train`` with the DP config at world 1 (a one-rank NCCL group,
+    bf16) against the same bindings with ``data_parallel=False``, cuDNN
+    deterministic, two epochs on phase 5's split: the same history and
+    bit-identical final tensors, the same launches, collectives every
+    step."""
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    runs = {}
+    try:
+        for tag, extra in (("dp_world1", []), ("dp_plain", ["training_loop.data_parallel=False"])):
+            counts = []
+            save_path = os.path.join(TRAIN_RUNS, tag)
+            with collectives_per_step(counts):
+                trainer, fwd, bwd, wall = counted(train, DP_CONFIGS, DP_BINDINGS + extra, save_path, 3)
+            rows, kept = history_rows(save_path)
+            runs[tag] = {"trainer": trainer, "rows": kept, "fwd_launches": fwd, "bwd_launches": bwd, "wall_s": wall,
+                         "collectives_per_step": counts, "world": trainer.world,
+                         "train_samples_per_s": [float(r["train_samples_per_sec"]) for r in rows]}
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    dp, plain = runs["dp_world1"], runs["dp_plain"]
+    steps = dp["trainer"].step
+    want = (3 * (steps + 2 * (-(-N_VAL // DP_BATCH) + -(-N_TRAIN_TEST // DP_BATCH))), 3 * steps)
+    for tag, run in runs.items():
+        if (run["fwd_launches"], run["bwd_launches"]) != want or run["trainer"].step != 2 * (N_TRAIN // DP_BATCH):
+            raise AssertionError(f"{tag}: launches {(run['fwd_launches'], run['bwd_launches'])}, want {want}; "
+                                 f"{run['trainer'].step} steps")
+        if run["trainer"].model.dtype != torch.bfloat16:
+            raise AssertionError(f"{tag}: compute dtype {run['trainer'].model.dtype}, the DP config's is bfloat16")
+    if dp["world"] is None or dp["world"].size != 1 or plain["world"] is not None or dist.is_initialized():
+        raise AssertionError(f"dp_world1: world {dp['world']}, plain {plain['world']}, group left "
+                             f"{dist.is_initialized()}")
+    if not dp["collectives_per_step"] or min(dp["collectives_per_step"]) <= 0 or any(plain["collectives_per_step"]):
+        raise AssertionError(f"collectives per step: world 1 {dp['collectives_per_step']}, plain "
+                             f"{plain['collectives_per_step']}")
+    if dp["rows"] != plain["rows"]:
+        raise AssertionError(f"dp_world1: history {dp['rows']} against the plain run's {plain['rows']}")
+    a, b = dp["trainer"].model.state_dict(), plain["trainer"].model.state_dict()
+    differ = [k for k in a if not torch.equal(a[k], b[k])]
+    if differ:
+        raise AssertionError(f"dp_world1: {len(differ)} tensors differ from the plain run's, e.g. {differ[:5]}")
+    log(f"[dp world1] {DP_CONFIGS[1]} at world 1 (NCCL, bf16, B={DP_BATCH}, lr {DP_LR}) vs data_parallel=False, "
+        f"cuDNN deterministic: history and all {len(a)} tensors bit-identical after {steps} steps | collectives per "
+        f"train step {dp['collectives_per_step']} | launches (fwd, bwd) {want} | train samples/s on {smi_line()}: "
+        f"world 1 {dp['train_samples_per_s']}, plain {plain['train_samples_per_s']}")
+    report = {tag: {k: v for k, v in run.items() if k not in ("trainer", "rows", "world")} for tag, run in runs.items()}
+    del runs, dp, plain, a, b
+    torch.cuda.empty_cache()
+    report["step_samples_per_s"] = dp_step_rates()
+    log(f"[dp world1] guided step, B={DP_BATCH} bf16 on a resident batch, {RATE_STEPS} steps a turn, turns plain, "
+        f"world 1, world 1, plain: {json.dumps(report['step_samples_per_s'])} samples/s on {smi_line()}")
+    return report
+
+
+def dp_step_rates(warmup=3):
+    """(a)'s guided step at the DP config's batch (B=256, bf16, kernels) on a
+    resident batch, samples/s of RATE_STEPS steps a turn without and with a
+    one-rank NCCL group, in turns plain, world 1, world 1, plain."""
+    data = dp_batch(12)
+    unlock = torch.tensor(True, device="cuda")
+    rates = {"plain": [], "world1": []}
+    for tag in ("plain", "world1", "world1", "plain"):
+        world, made = parallel.join_world("cuda") if tag == "world1" else (None, False)
+        try:
+            model = init_model(MMTMMVCNN(nclasses=40, use_pallas=True, dtype=torch.bfloat16), SEED, "cpu").to(
+                device="cuda", memory_format=torch.channels_last)
+            trainer = Trainer(model, make_optimizer(model.parameters(), lr=DP_LR), controller_kind="guided",
+                              controller_config={"epsilon": 0.01, "curation_windowsize": 5}, device="cuda",
+                              world=world)
+            flips = trainer.train_flips(DP_BATCH, 2)
+            for _ in range(warmup):
+                trainer.train_batch(data, flips, unlock)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(RATE_STEPS):
+                trainer.train_batch(data, flips, unlock)
+            torch.cuda.synchronize()
+            rates[tag].append(RATE_STEPS * DP_BATCH / (time.perf_counter() - t0))
+        finally:
+            parallel.leave_world(made)
+        del trainer, model
+        torch.cuda.empty_cache()
+    return rates
+
+
+def dp_batch(seed, pad=0):
+    """A global batch of DP_BATCH 224² samples on the card, the last ``pad``
+    rows padding."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    data = {
+        "images": torch.randint(0, 256, (DP_BATCH, 2, 224, 224, 3), generator=g, device="cuda", dtype=torch.uint8),
+        "labels": torch.randint(0, 40, (DP_BATCH,), generator=g, device="cuda", dtype=torch.int32),
+        "mask": torch.ones(DP_BATCH, device="cuda"),
+    }
+    data["mask"][DP_BATCH - pad:] = 0.0
+    return data
+
+
+DP_PADS = (0, 0, DP_BATCH // 2)  # the third batch: the second rank's rows all padding
+
+
+def dp_trainer(world):
+    model = init_model(MMTMMVCNN(nclasses=40, use_pallas=True), SEED, "cpu").to(
+        device="cuda", memory_format=torch.channels_last)
+    return Trainer(model, make_optimizer(model.parameters(), lr=DP_LR), controller_kind="guided",
+                   controller_config={"epsilon": 0.01, "curation_windowsize": 5}, device="cuda", seed=SEED,
+                   world=world)
+
+
+def dp_state(trainer):
+    return {"model": {k: v.detach().cpu().clone() for k, v in trainer.model.state_dict().items()},
+            "ctrl": {k: v.cpu().clone() for k, v in trainer.ctrl.as_dict().items()}}
+
+
+def dp_step(trainer, t, start, world):
+    """Guided step ``t`` from ``start`` on this rank's rows of the global
+    batch, with its rows of the global flips; returns (outputs, seconds)."""
+    trainer.model.load_state_dict(start["model"])
+    trainer.ctrl = ControllerState(**{k: v.cuda() for k, v in start["ctrl"].items()})
+    trainer.step = t
+    data = dp_batch(40 + t, DP_PADS[t])
+    if world is not None:
+        rows = world.rows(DP_BATCH)
+        data = {k: v[rows] for k, v in data.items()}
+    flips = trainer.train_flips(*flip_shape(data["images"].shape))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = trainer.train_batch(data, flips, torch.tensor(True, device="cuda"))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return {"loss": float(out["loss"]), "acc": float(out["acc"]), "curated": bool(out["curated"]),
+            "curation_mode": bool(trainer.ctrl.curation_mode), "caring_modality": int(trainer.ctrl.caring_modality)
+            }, seconds
+
+
+def dp_one_process(path):
+    """(b)'s reference: DP_STEPS guided steps of one process on the global
+    batches (f32, TF32 off) from the seeded model, the controller deciding
+    each step but the last, which curates modality 1 (its forward reads
+    the running averages); each step's start and end saved to ``path``."""
+    trainer = dp_trainer(None)
+    starts, ends, outs = [], [], []
+    for t in range(DP_STEPS):
+        if t == DP_STEPS - 1:
+            trainer.ctrl = dataclasses.replace(trainer.ctrl, curation_mode=torch.tensor(True, device="cuda"),
+                                               caring_modality=torch.tensor(1, dtype=torch.int32, device="cuda"),
+                                               curation_step=torch.tensor(0, dtype=torch.int32, device="cuda"))
+        starts.append(dp_state(trainer))
+        out, _ = dp_step(trainer, t, starts[-1], None)
+        outs.append(out)
+        ends.append(dp_state(trainer)["model"])
+    torch.save({"starts": starts, "ends": ends, "outs": outs}, path)
+    del trainer
+    torch.cuda.empty_cache()
+    return outs
+
+
+def state_digest(model) -> str:
+    h = hashlib.sha256()
+    for k, v in model.state_dict().items():
+        h.update(k.encode())
+        h.update(v.detach().cpu().contiguous().view(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def dp_rank(rank, ref_path, record_bindings, record_path):
+    """One of DP_RANKS ranks sharing cuda:0 in a gloo group (NCCL refuses two
+    ranks on one card): (b) each guided step from the one-process run's
+    start, on this rank's rows, against that run's end; (c) the recording
+    ``eval_`` with ``evalution_loop.data_parallel``."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method="env://", timeout=DP_GROUP_TIMEOUT)
+    try:
+        world = parallel.world_from_process_group()
+        ref = torch.load(ref_path, weights_only=False)
+        trainer = dp_trainer(world)
+        steps = []
+        for t in range(DP_STEPS):
+            mmtm_gating.launches = mmtm_gating_bwd.launches = 0
+            parallel.reset_collective_count()
+            out, seconds = dp_step(trainer, t, ref["starts"][t], world)
+            start, want = ref["starts"][t]["model"], ref["ends"][t]
+            got = {k: v.detach().cpu() for k, v in trainer.model.state_dict().items()}
+            ratios = l2_over_update(float_state_of(got), float_state_of(want), float_state_of(start))
+            beyond = [k for k, (_, d, u) in ratios.items() if d > STEP_TOL * u + 1e-7]
+            steps.append({**out, "seconds": seconds, "fwd_launches": mmtm_gating.launches,
+                          "bwd_launches": mmtm_gating_bwd.launches, "collectives": parallel.collective_count(),
+                          "l2_diff_over_update": max(v[0] for v in ratios.values()), "beyond": beyond,
+                          "digest": state_digest(trainer.model)})
+        del trainer, ref
+        torch.cuda.empty_cache()
+        cfg.clear_config()
+        cfg.parse_config_files_and_bindings([os.path.join(REPO, "configs/recording.gin")],
+                                            "\n".join(record_bindings + ["evalution_loop.data_parallel=True"]))
+        with built_pipelines() as built, contextlib.redirect_stdout(io.StringIO()):
+            mmtm_gating.launches = mmtm_gating_bwd.launches = 0
+            eval_(record_path)
+            torch.cuda.synchronize()
+            record = {"fwd_launches": mmtm_gating.launches, "bwd_launches": mmtm_gating_bwd.launches,
+                      "resident": [(p.resident, str(p.device)) for p in built if p.epoch > 0]}
+        cfg.clear_config()
+        return {"steps": steps, "record": record}
+    finally:
+        dist.destroy_process_group()
+
+
+def float_state_of(state):
+    return {k: v.float() for k, v in state.items() if v.is_floating_point()}
+
+
+def dp_phase(run_dir):
+    """Phase 13: data parallelism on the card (2-D family at full width,
+    the DP config's global batch of 256): (a) world 1 against the plain run,
+    (b) two gloo ranks on cuda:0 against one process, step by step, (c) the
+    recording ``eval_`` at two ranks against one process."""
+    report = {"world1": dp_world1()}
+
+    ref_path = os.path.join(WORK, "dp_reference.pt")
+    rows = N_TRAIN + N_VAL  # recording.gin: valid_size=0, the whole train file
+    record_bindings = [
+        f"get_mvdcndata.root_dir='{TRAIN_DATA}'", "get_mvdcndata.specific_views=[0, 1]",
+        "MMTM_mitigate.use_pallas=True", f"eval_.batch_size={DP_BATCH}", "eval_.device='cuda:0'",
+        f"eval_.pretrained_weights_path='{os.path.join(run_dir, 'model_best_val.pt')}'",
+    ]
+    one_record = os.path.join(TRAIN_RUNS, "dp_record_one")
+    ranks_record = os.path.join(TRAIN_RUNS, "dp_record_ranks")
+    try:
+        one = dp_one_process(ref_path)
+        trainer, fwd, bwd, wall = counted(eval_, ["configs/recording.gin"], record_bindings, one_record, 1)
+        del trainer
+        torch.cuda.empty_cache()
+        t0 = time.time()
+        ranks = run_ranks(dp_rank, DP_RANKS, ref_path, record_bindings, ranks_record, timeout=DP_RUN_TIMEOUT)
+        spawn_s = time.time() - t0
+    finally:
+        if os.path.exists(ref_path):
+            os.remove(ref_path)
+
+    # (b) each step: the same decisions and digests on both ranks, losses and
+    # tensors against the one process
+    batches = -(-DP_BATCH // DP_RANKS)
+    for t, want in enumerate(one):
+        got = [r["steps"][t] for r in ranks]
+        for key in ("curated", "curation_mode", "caring_modality"):
+            if any(g[key] != want[key] for g in got):
+                raise AssertionError(f"dp step {t}: {key} {[g[key] for g in got]}, one process {want[key]}")
+        if len({g["digest"] for g in got}) != 1 or len({g["loss"] for g in got}) != 1:
+            raise AssertionError(f"dp step {t}: the ranks' states or losses differ")
+        if not abs(got[0]["loss"] - want["loss"]) <= DP_LOSS_RTOL * abs(want["loss"]):
+            raise AssertionError(f"dp step {t}: loss {got[0]['loss']} vs one process {want['loss']}")
+        if got[0]["beyond"]:
+            raise AssertionError(f"dp step {t}: beyond {STEP_TOL} x the update in {got[0]['beyond'][:5]}")
+        for rank, g in enumerate(got):
+            if (g["fwd_launches"], g["bwd_launches"]) != (3, 3) or g["collectives"] <= 0:
+                raise AssertionError(f"dp step {t} rank {rank}: launches {(g['fwd_launches'], g['bwd_launches'])}, "
+                                     f"want (3, 3); {g['collectives']} collectives")
+    if not one[-1]["curated"]:
+        raise AssertionError("dp: the last step did not curate")
+    rates = [DP_BATCH / max(r["steps"][t]["seconds"] for r in ranks) for t in range(DP_STEPS)]
+    report["gloo"] = {
+        "l2_diff_over_update": [max(r["steps"][t]["l2_diff_over_update"] for r in ranks) for t in range(DP_STEPS)],
+        "loss_rel_err": [abs(ranks[0]["steps"][t]["loss"] - o["loss"]) / abs(o["loss"]) for t, o in enumerate(one)],
+        "curated": [o["curated"] for o in one],
+        "collectives_per_step": [ranks[0]["steps"][t]["collectives"] for t in range(DP_STEPS)],
+        "launches_per_rank": [[sum(s[k] for s in r["steps"]) for k in ("fwd_launches", "bwd_launches")] for r in ranks],
+        "samples_per_s_correctness_only": rates, "spawn_s": spawn_s,
+    }
+    log(f"[dp gloo] {DP_RANKS} ranks on cuda:0 (gloo) vs one process, f32, TF32 off, B={DP_BATCH} ({batches} a rank), "
+        f"{DP_STEPS} guided steps each from the one process's start: largest ||diff||_2 / ||update||_2 a step "
+        f"{report['gloo']['l2_diff_over_update']}, loss rel err {report['gloo']['loss_rel_err']}, curated "
+        f"{report['gloo']['curated']} on both, collectives a step {report['gloo']['collectives_per_step']}, "
+        f"launches (fwd, bwd) per rank {report['gloo']['launches_per_rank']} | correctness only: gloo through the "
+        f"host, two processes sharing one card: {rates} samples/s on {smi_line()}")
+
+    # (c) the recording at two ranks against one process
+    recorded = {tag: recorded_maps(tag, path, rows, DP_BATCH)
+                for tag, path in (("dp_record_one", one_record), ("dp_record_ranks", ranks_record))}
+    order = {}
+    for tag, path in (("one", one_record), ("ranks", ranks_record)):
+        with open(os.path.join(path, "eval_history_batch", "history.pickle"), "rb") as f:
+            order[tag] = np.concatenate([np.asarray(i) for i in pickle.load(f)["test_indices"]])
+    if not np.array_equal(order["one"], order["ranks"]):
+        raise AssertionError("dp record: the indices are not in the one-process order")
+    rec_batches = -(-rows // DP_BATCH)
+    for rank, r in enumerate(ranks):
+        rec = r["record"]
+        if (rec["fwd_launches"], rec["bwd_launches"]) != (3 * rec_batches, 0) or rec["resident"] != [(True, "cuda:0")]:
+            raise AssertionError(f"dp record rank {rank}: launches {(rec['fwd_launches'], rec['bwd_launches'])}, "
+                                 f"want {(3 * rec_batches, 0)}; splits {rec['resident']}")
+    if (fwd, bwd) != (3 * rec_batches, 0):
+        raise AssertionError(f"dp record one process: launches {(fwd, bwd)}")
+    sq_rtol, sq_atol = TOL[torch.float32]["sq"]
+    report["record_max_abs_err"] = max(
+        check_close(f"dp recorded squeeze mmtm{m + 2} view {v}: two ranks vs one process", torch.from_numpy(g),
+                    torch.from_numpy(w), sq_rtol, sq_atol)
+        for m, (gm, wm) in enumerate(zip(recorded["dp_record_ranks"], recorded["dp_record_one"]))
+        for v, (g, w) in enumerate(zip(gm, wm)))
+    report["record_launches_per_rank"] = [r["record"]["fwd_launches"] for r in ranks]
+    report["record_one"] = eval_rate("dp_record_one", one_record, rows, fwd, wall)
+    report["record_ranks"] = eval_rate("dp_record_ranks", ranks_record, rows, report["record_launches_per_rank"][0],
+                                       spawn_s)
+    log(f"[dp record] {rows} samples at two ranks vs one process, B={DP_BATCH}: each index once, in the one "
+        f"process's order; squeeze maps max |diff| {report['record_max_abs_err']:.3e} (sq tolerance); forward "
+        f"launches per rank {report['record_launches_per_rank']}")
+    return report
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs an NVIDIA GPU", file=sys.stderr)
@@ -1909,6 +2282,8 @@ def main() -> int:
         # phase 5's split and runs, and phase 7's recording in its f32 run
         side = phase("12 side entries", side_phase, os.path.join(TRAIN_RUNS, "f32"))
         log("[side] " + json.dumps(side))
+        dp = phase("13 data parallel", dp_phase, os.path.join(TRAIN_RUNS, "f32"))
+        log("[dp] " + json.dumps(dp))
     finally:
         shutil.rmtree(TRAIN_DATA, ignore_errors=True)
         shutil.rmtree(TRAIN_RUNS, ignore_errors=True)
@@ -1934,6 +2309,18 @@ def main() -> int:
                 "launches_sweep_k2": side["sweep"]["launches"],
                 **{f"launches_{k}": v["fwd_launches"] for k, v in side_runs.items()}},
         "bwd": {f"launches_{k}": v["bwd_launches"] for k, v in side_runs.items()},
+    }
+
+    # phase 13: the DP config at world 1 and without data parallelism, each of
+    # the two gloo ranks' guided steps, and each rank's recording pass
+    dp_launches = {
+        direction: {
+            "launches_dp_world1": dp["world1"]["dp_world1"][f"{direction}_launches"],
+            "launches_dp_plain": dp["world1"]["dp_plain"][f"{direction}_launches"],
+            **{f"launches_dp_gloo_rank{r}": n[i] for r, n in enumerate(dp["gloo"]["launches_per_rank"])},
+            **({f"launches_dp_record_rank{r}": n for r, n in enumerate(dp["record_launches_per_rank"])}
+               if direction == "fwd" else {}),
+        } for i, direction in enumerate(("fwd", "bwd"))
     }
 
     def bound_by(report):
@@ -1964,6 +2351,7 @@ def main() -> int:
         **{f"launches_{k}": v["fwd_launches"] for k, v in cached.items()},
         **launches_3d["fwd"],
         **side_launches["fwd"],
+        **dp_launches["fwd"],
         "max_abs_err": f32["max_abs_err"],
         "max_abs_err_bf16": bf16["max_abs_err"],
         # float32, the configuration's dtype: one forward's three fusion sites at B=128
@@ -1989,6 +2377,7 @@ def main() -> int:
         **{f"launches_{k}": v["bwd_launches"] for k, v in cached.items()},
         **launches_3d["bwd"],
         **side_launches["bwd"],
+        **dp_launches["bwd"],
         "max_abs_err": bf32["max_abs_err"],
         "max_abs_err_bf16": bbf16["max_abs_err"],
         # float32: one step's three fusion sites at B=128

@@ -23,8 +23,10 @@ no jax); BatchNorm folding for serving and eval (``engine/fold_bn.py``);
 K checkpoints in one pass (``eval_sweep``); the model options ``SEonly``,
 ``shareweight``, ``stem_s2d``, ``remat`` and ``pretraining``; in-process
 entry runs (``run_api.run_entry``) and a traced train epoch
-(``Trainer.enable_profiling``).  Data parallelism, ``model_parallel``
-other than 1 and ``orbax_dir`` are not ported and raise.
+(``Trainer.enable_profiling``); data parallelism over ``torch.distributed``
+ranks, one process a card (``parallel/``, ``training_loop.data_parallel``,
+``evalution_loop.data_parallel``).  ``model_parallel`` other than 1 and
+``orbax_dir`` are not ported and raise.
 """
 
 __version__ = "0.1.0"

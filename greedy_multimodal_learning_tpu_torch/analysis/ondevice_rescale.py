@@ -7,7 +7,8 @@ them on the host.  When those means are all a run needs,
 :class:`RescaleMeanAccumulator` sums each step's maps on the device, each
 row weighted by how often its sample index occurs in the selected set, and
 only the (C,) means cross to the host, written by ``evalution_loop`` as
-``eval_history_batch/rescale_means.pkl``.
+``eval_history_batch/rescale_means.pkl``.  Under data parallelism each rank
+sums its rows and the sums are added over the world before the division.
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ from collections import Counter
 
 import numpy as np
 import torch
+
+from ..parallel import mesh as parallel
 
 logger = logging.getLogger(__name__)
 
@@ -29,9 +32,11 @@ class RescaleMeanAccumulator:
     ``selected_indices`` are the dataset indices to average over, as
     ``get_rescale_weights`` selects them (the training run's
     ``train_indices`` or ``val_indices``).  An index selected twice counts
-    twice, as ``maps[selected].mean(0)`` counts it (``ondevice_rescale.py:55-60``)."""
+    twice, as ``maps[selected].mean(0)`` counts it (``ondevice_rescale.py:55-60``).
+    With a ``world``, :meth:`means` sums every rank's sums first."""
 
-    def __init__(self, selected_indices, device):
+    def __init__(self, selected_indices, device, world=None):
+        self.world = world
         self.selected = np.asarray(selected_indices)
         self._weight_of = Counter(int(i) for i in self.selected)
         self.device = torch.device(device)
@@ -64,7 +69,10 @@ class RescaleMeanAccumulator:
         ({module: {view: (C,) float32}}, member count)."""
         if self.sums is None:
             raise RuntimeError("no squeeze maps were consumed: did the pass record them (saving_mmtm_squeeze_array)?")
-        flat = torch.cat([s for sums in self.sums for s in sums] + [self.count[None]]).cpu().numpy()
+        flat = torch.cat([s for sums in self.sums for s in sums] + [self.count[None]])
+        if self.world is not None:
+            flat = parallel.all_reduce_(flat)
+        flat = flat.cpu().numpy()
         count = float(flat[-1])
         if count != len(self.selected):
             logger.warning(

@@ -131,13 +131,15 @@ def get_mvdcndata(
 ):
     """Loader factory with the JAX package's gin surface
     (``modelnet.py:128-176``).  Returns (train, valid, test) batch
-    iterators, single process.
+    iterators over this node's share of each split
+    (:func:`~..parallel.process_local_indices`; all of it on one node).
 
     ``device_cache``: True / False / "auto" (the default; as True): upload
     each split's uint8 corpus to ``device`` once and gather every batch
     there (:class:`~.pipeline.DeviceCachePipeline`; a corpus over the memory
     budget streams instead, with a warning); False streams host batches.
     The entries pass their own device."""
+    from ..parallel.multihost import node_of_process, process_local_indices
     from .pipeline import BatchPipeline, wrap_device_cache
 
     if root_dir is None:
@@ -148,8 +150,12 @@ def get_mvdcndata(
     train_ds = MultiviewModelNet(root_dir, "train", specific_view=views, cache=cache)
 
     training_idx, valid_idx = reference_val_split(len(train_ds), valid_size, random_seed_for_validation)
+    # each node reads its share of every split (one node: all of it)
+    node = node_of_process()
+    training_idx, valid_idx = process_local_indices(training_idx, *node), process_local_indices(valid_idx, *node)
+    test_idx = process_local_indices(range(len(test_ds)), *node)
 
     train_loader = BatchPipeline(train_ds, training_idx, batch_size, shuffle=True, seed=seed)
     valid_loader = BatchPipeline(train_ds, valid_idx, batch_size, shuffle=False)
-    test_loader = BatchPipeline(test_ds, range(len(test_ds)), batch_size, shuffle=False)
+    test_loader = BatchPipeline(test_ds, test_idx, batch_size, shuffle=False)
     return tuple(wrap_device_cache(p, device_cache, device) for p in (train_loader, valid_loader, test_loader))

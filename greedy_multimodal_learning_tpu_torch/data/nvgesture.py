@@ -78,9 +78,11 @@ def get_nvgesturedata(
 ):
     """Loader factory with the JAX package's gin surface
     (``nvgesture.py:79-117``): the deterministic validation split, the train
-    split shuffled; returns (train, valid, test) batch iterators, single
-    process.  ``device_cache`` and ``device`` as in
-    :func:`~.modelnet.get_mvdcndata`; the entries pass their own device."""
+    split shuffled; returns (train, valid, test) batch iterators over this
+    node's share of each split.  The node's share, ``device_cache`` and
+    ``device`` as in :func:`~.modelnet.get_mvdcndata`; the entries pass
+    their own device."""
+    from ..parallel.multihost import node_of_process, process_local_indices
     from .pipeline import BatchPipeline, wrap_device_cache
 
     if root_dir is None:
@@ -89,10 +91,14 @@ def get_nvgesturedata(
     test_ds = MultimodalClipDataset(root_dir, "test", specific_modalities=mods, cache=cache)
     train_ds = MultimodalClipDataset(root_dir, "train", specific_modalities=mods, cache=cache)
     training_idx, valid_idx = reference_val_split(len(train_ds), valid_size, random_seed_for_validation)
+    # each node reads its share of every split (one node: all of it)
+    node = node_of_process()
+    training_idx, valid_idx = process_local_indices(training_idx, *node), process_local_indices(valid_idx, *node)
+    test_idx = process_local_indices(range(len(test_ds)), *node)
 
     train_loader = BatchPipeline(train_ds, training_idx, batch_size, shuffle=True, seed=seed)
     valid_loader = BatchPipeline(train_ds, valid_idx, batch_size, shuffle=False)
-    test_loader = BatchPipeline(test_ds, range(len(test_ds)), batch_size, shuffle=False)
+    test_loader = BatchPipeline(test_ds, test_idx, batch_size, shuffle=False)
     return tuple(wrap_device_cache(p, device_cache, device) for p in (train_loader, valid_loader, test_loader))
 
 

@@ -15,6 +15,13 @@ u8 clips, labels: (B,) i32,
 indices: (B,) i32, mask: (B,) f32, size: int}; numpy arrays when streamed,
 tensors on the pipeline's device (``indices`` and ``size`` on the host)
 when cached.
+
+Under data parallelism :func:`adopt_world` gives each pipeline its rank's
+rows of every batch (``rows``, a slice of the B rows): ``images``,
+``labels`` and ``mask`` then hold those rows only, streamed or gathered,
+while ``indices`` and ``size`` stay the whole node batch's and ``rows``
+names the slice (the counterpart of ``adopt_mesh_for_cache``,
+``pipeline.py:404-436``).
 """
 
 from __future__ import annotations
@@ -52,6 +59,7 @@ class BatchPipeline:
         # The order is a pure function of (seed, epoch); bare iteration
         # advances the epoch.
         self.epoch = 0
+        self.rows = None  # this rank's rows of every batch (adopt_world); None: all
 
     def set_epoch(self, epoch: int):
         self.epoch = int(epoch)
@@ -74,17 +82,24 @@ class BatchPipeline:
     def _collate(self, batch_indices: np.ndarray) -> dict:
         b = self.batch_size
         size = len(batch_indices)
-        items = [self.dataset[int(i)] for i in batch_indices]
-        imgs = collate_u8([it[1] for it in items], b)  # (b, V, ..., C), rows past size zero
-        labels = np.array([it[2] for it in items], np.int32)
-        idxs = np.array([it[0] for it in items], np.int32)
-        if size < b:  # pad to the static shape; mask marks real rows
-            pad = b - size
-            labels = np.concatenate([labels, np.zeros((pad,), np.int32)])
-            idxs = np.concatenate([idxs, np.full((pad,), -1, np.int32)])
-        mask = np.zeros((b,), np.float32)
-        mask[:size] = 1.0
-        return {"images": imgs, "labels": labels, "indices": idxs, "mask": mask, "size": size}
+        idxs = np.full((b,), -1, np.int32)  # -1 on pad rows
+        idxs[:size] = batch_indices
+        rows = self.rows or slice(0, b)
+        width = rows.stop - rows.start
+        # only this rank's rows are read and collated
+        items = [self.dataset[int(i)] for i in batch_indices[rows]]
+        if items:
+            imgs = collate_u8([it[1] for it in items], width)  # rows past the real ones zero
+        else:  # a block of padding only
+            imgs = np.zeros((width,) + self.dataset[int(self.indices[0])][1].shape, np.uint8)
+        labels = np.zeros((width,), np.int32)  # pad rows: label 0, mask 0
+        labels[:len(items)] = [it[2] for it in items]
+        mask = np.zeros((width,), np.float32)
+        mask[:len(items)] = 1.0
+        batch = {"images": imgs, "labels": labels, "indices": idxs, "mask": mask, "size": size}
+        if self.rows is not None:
+            batch["rows"] = self.rows
+        return batch
 
     def __iter__(self):
         self.epoch += 1
@@ -251,19 +266,35 @@ class DeviceCachePipeline(BatchPipeline):
         # one host-to-device copy of the epoch's rows; every batch is a slice
         rows_dev = torch.from_numpy(rows).to(self.device)
         images, labels = self._corpus
+        mine = self.rows or slice(0, b)  # only this rank's rows are gathered
         for k in range(n_batches):
             chunk = order[k * b:(k + 1) * b]
             size = len(chunk)
             idxs = np.full(b, -1, np.int32)
             idxs[:size] = chunk
-            r = rows_dev[k * b:(k + 1) * b]
-            yield {
+            r = rows_dev[k * b + mine.start:k * b + mine.stop]
+            batch = {
                 "images": images.index_select(0, r),
                 "labels": labels.index_select(0, r),
                 "indices": idxs,
                 "mask": (r != self._pad_row).to(torch.float32),
                 "size": size,
             }
+            if self.rows is not None:
+                batch["rows"] = self.rows
+            yield batch
+
+
+def adopt_world(pipelines, world) -> None:
+    """Give each pipeline this rank's rows of every batch of ``world``
+    (:meth:`~..parallel.World.rows`); a batch size the node's ranks do not
+    divide raises ValueError.  Each rank uploads its node's corpus to its
+    own device and gathers its rows there, as the JAX package replicates the
+    corpus over the mesh and gathers batches already sharded
+    (``pipeline.py:318-343,404-436``)."""
+    for pipe in pipelines:
+        if pipe is not None:
+            pipe.rows = world.rows(pipe.batch_size)
 
 
 def wrap_device_cache(pipeline: BatchPipeline, enabled, device) -> BatchPipeline:

@@ -24,8 +24,16 @@ them (``framework.py:110-119,285-313,347-360``).  ``enable_profiling``
 traces the next train epoch with ``torch.profiler``
 (``framework.py:169-171,220-254``).
 
-Not ported: the scanned eval (it served the TPU's remote link) and the
-data-parallel mesh.
+A trainer built with a ``world`` (:class:`~..parallel.World`) is one rank
+of a data-parallel run, the counterpart of the JAX trainer's ``mesh``
+(``framework.py:85-98``): each batch holds its rows of the node batch
+(:func:`~..data.pipeline.adopt_world`), its steps reduce over the world
+(:mod:`..parallel.mesh`), the flips are the rows of the global batch's
+draw, the epoch metrics are weighted by the global batch sizes, the
+recordings and indices are gathered in global-batch order, and rank 0
+alone writes checkpoints.  The model's state starts as rank 0's.
+
+Not ported: the scanned eval (it served the TPU's remote link).
 """
 
 from __future__ import annotations
@@ -42,6 +50,8 @@ import torch
 
 from . import checkpoint as ckpt
 from ..data.transforms import draw_flips, flip_shape, preprocess
+from ..parallel import mesh as parallel
+from ..parallel.multihost import is_main_process
 from .bdr import GroupReducer
 from .callbacks import CallbackList, ProgressionCallback, ValidationProgressionCallback
 from .controller import ControllerState, init_controller_state, random_draw
@@ -155,8 +165,10 @@ class Trainer:
         average_squeezemaps=None,
         mmtm_off: bool = False,
         fold_bn_eval: bool = False,
+        world: Optional[parallel.World] = None,
     ):
         self.model = model
+        self.world = world
         self.optimizer = optimizer
         self.nummodalities = nummodalities
         self.device = torch.device(device)
@@ -238,8 +250,13 @@ class Trainer:
         set_learning_rate(self.optimizer, lr)
 
     def save_weights(self, filepath):
-        ckpt.save_weights(self.model, filepath, optimizer=self.optimizer, controller=self.ctrl.as_dict(),
-                          step=self.step)
+        """The checkpoint and its sidecar; under data parallelism rank 0
+        writes them and every rank waits until it has."""
+        if is_main_process():
+            ckpt.save_weights(self.model, filepath, optimizer=self.optimizer, controller=self.ctrl.as_dict(),
+                              step=self.step)
+        if self.world is not None:
+            parallel.barrier(self.device)
 
     def load_weights(self, filepath):
         ckpt.load_weights(self.model, filepath)
@@ -261,22 +278,80 @@ class Trainer:
     def _to_device(self, batch):
         return {k: _on_device(batch[k], self.device) for k in ("images", "labels", "mask")}
 
+    def _block_indices(self, batch) -> np.ndarray:
+        """This rank's rows of the batch's ``indices`` (-1 on padding); a
+        batch without ``rows`` raises, as its images would be the whole node
+        batch's."""
+        if "rows" not in batch:
+            raise ValueError("a data-parallel trainer takes batches of its rank's rows: adopt_world(pipelines, world)")
+        return np.asarray(batch["indices"])[batch["rows"]]
+
     def train_flips(self, *shape: int) -> torch.Tensor:
         """The flips of the next train step, of ``shape`` ((B, V) for image
         stacks, (B,) for clips: :func:`~..data.transforms.flip_shape`), a
-        function of (seed, step) drawn on the device."""
+        function of (seed, step) drawn on the device.  Under data
+        parallelism ``shape`` is the rank's block: the global batch's flips
+        are drawn and the rank takes its rows."""
         self._flip_gen.manual_seed(self._seed * 1_000_003 + self.step)
-        return draw_flips(shape, self._flip_gen)
+        if self.world is None:
+            return draw_flips(shape, self._flip_gen)
+        b = shape[0]
+        flips = draw_flips((b * self.world.size,) + tuple(shape[1:]), self._flip_gen)
+        return flips[self.world.rank * b:(self.world.rank + 1) * b]
 
     def train_batch(self, data, flips, unlock) -> dict:
         """One train step on a batch of device tensors with its
         ``flips`` and the () bool ``unlock``; advances the controller state
         and the step count.  Returns the step's device outputs."""
-        self.ctrl, out = train_step(
-            self.model, self.optimizer, self._reducer, self._controller_update, self.ctrl, data, flips, unlock
-        )
+        with parallel.data_parallel(self.world):
+            self.ctrl, out = train_step(
+                self.model, self.optimizer, self._reducer, self._controller_update, self.ctrl, data, flips, unlock
+            )
         self.step += 1
         return out
+
+    def _pass_records(self, indices, sizes, recorded):
+        """(indices, sizes, recordings as {key: [batch][MMTM][view] numpy
+        (size, C)}) of a pass, fetched in one copy; under data parallelism
+        the global batches' (:meth:`_gather_pass`)."""
+        if self.world is None:
+            return indices, sizes, _fetch_records(recorded, sizes)
+        indices, recorded = self._gather_pass(indices, recorded)
+        return indices, [len(i) for i in indices], recorded
+
+    def _gather_pass(self, blocks, recorded):
+        """Under data parallelism: the pass's indices and recordings in
+        global-batch order (the ranks' blocks joined) and trimmed to the
+        real rows, from ``blocks`` (each batch's rows of ``indices``) and
+        ``recorded`` (each batch's {key: [MMTM][view] (b, C)} tensors); one
+        gather each.  Returns ([batch] indices, {key: [batch][MMTM][view]
+        numpy (size, C)})."""
+        if not blocks:
+            return [], {}
+        world = self.world
+        local = torch.from_numpy(np.stack(blocks).astype(np.int64)).to(self.device)
+        joined = parallel.gather(local, world).cpu().numpy()  # (ranks, batches, b)
+        per_batch = [joined[:, k].reshape(-1) for k in range(len(blocks))]
+        valid = [idx != -1 for idx in per_batch]
+        indices = [idx[v].astype(blocks[0].dtype) for idx, v in zip(per_batch, valid)]
+        if not recorded[0]:
+            return indices, {}
+        keys = list(recorded[0])
+        leaves = [t.reshape(-1) for rec in recorded for k in keys for m in rec[k] for t in m]
+        flat = parallel.gather(torch.cat(leaves), world).cpu().numpy()  # (ranks, leaf floats)
+        out, offset = {k: [] for k in keys}, 0
+        for rec, v in zip(recorded, valid):
+            for k in keys:
+                batch = []
+                for m in rec[k]:
+                    views = []
+                    for t in m:
+                        n = t.numel()
+                        views.append(flat[:, offset:offset + n].reshape(-1, t.shape[1])[v])
+                        offset += n
+                    batch.append(views)
+                out[k].append(batch)
+        return indices, out
 
     def _start_profiler(self):
         """A started ``torch.profiler`` when ``enable_profiling`` asked for
@@ -315,7 +390,7 @@ class Trainer:
             recorded.append({k: out.pop(k) for k in RECORD_KEYS if k in out})
             records.append(out)
             sizes.append(size)
-            indices.append(np.asarray(batch["indices"])[:size])
+            indices.append(np.asarray(batch["indices"])[:size] if self.world is None else self._block_indices(batch))
             batch_logs = {
                 "batch": batch_ind,
                 "size": size,
@@ -331,6 +406,7 @@ class Trainer:
             self._stop_profiler(profiler, first_step)
         outs = _fetch(records)  # the epoch's one synchronization point
         self.curated_steps += int(sum(bool(o["curated"]) for o in outs))
+        indices, sizes, recorded = self._pass_records(indices, sizes, recorded)
         sizes = np.array(sizes, np.float64)
         losses = np.array([o["loss"] for o in outs], np.float64)
         total = sizes.sum()
@@ -343,7 +419,7 @@ class Trainer:
         for i in range(self.nummodalities):
             vals = np.array([o["acc_modal"][i] for o in outs])
             train_dict[f"acc_modal_{i}"] = float((vals * sizes).sum() / total)
-        for key, per_batch in _fetch_records(recorded, [int(n) for n in sizes]).items():
+        for key, per_batch in recorded.items():
             train_dict[f"train_{key}"] = per_batch
         if np.isnan(losses).any():
             self.stop_training = True
@@ -385,12 +461,18 @@ class Trainer:
             batch_begin_time = timeit.default_timer()
             progress.on_batch_begin(batch_ind, {})
             size = batch["size"]
-            out = eval_step(model, self.ctrl, self._to_device(batch), mmtm_off=self.mmtm_off,
-                            average_squeezemaps=self.average_squeezemaps)
-            indices.append(np.asarray(batch["indices"])[:size])
+            with parallel.data_parallel(self.world):
+                out = eval_step(model, self.ctrl, self._to_device(batch), mmtm_off=self.mmtm_off,
+                                average_squeezemaps=self.average_squeezemaps)
+            if self.world is None:
+                indices.append(np.asarray(batch["indices"])[:size])
+                real = size
+            else:  # the rank's rows; its real ones come first
+                indices.append(self._block_indices(batch))
+                real = int((indices[-1] != -1).sum())
             if accumulator is not None and "squeezedmaps_array_list" in out:
                 accumulator.consume(out.pop("squeezedmaps_array_list"),
-                                    accumulator.member_mask(indices[-1], size, len(batch["mask"])))
+                                    accumulator.member_mask(indices[-1], real, len(batch["mask"])))
             recorded.append({k: out.pop(k) for k in RECORD_KEYS if k in out})
             records.append(out)
             sizes.append(size)
@@ -401,6 +483,7 @@ class Trainer:
                 callback_list.on_val_batch_end(batch_ind, batch_logs)
 
         outs = _fetch(records)
+        indices, sizes, recorded = self._pass_records(indices, sizes, recorded)
         sizes = np.array(sizes, np.float64)
         total = max(sizes.sum(), 1.0)
         losses = np.array([o["loss"] for o in outs], np.float64)
@@ -412,7 +495,7 @@ class Trainer:
         for i in range(self.nummodalities):
             vals = np.array([o["acc_modal"][i] for o in outs])
             info[f"{phase}_acc_modal_{i}"] = float((vals * sizes).sum() / total)
-        for key, per_batch in _fetch_records(recorded, [int(n) for n in sizes]).items():
+        for key, per_batch in recorded.items():
             info[f"{phase}_{key}"] = per_batch
         return info
 
@@ -439,6 +522,8 @@ class Trainer:
         callback_list.set_params({"epochs": epochs, "steps": steps_per_epoch})
 
         self.stop_training = False
+        if self.world is not None:
+            parallel.broadcast_module_(self.model)  # every rank starts from rank 0's state
         callback_list.on_train_begin({})
         for epoch in range(initial_epoch, epochs + 1):
             callback_list.on_epoch_begin(epoch, {})

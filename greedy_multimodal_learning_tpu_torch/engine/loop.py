@@ -17,12 +17,21 @@ the port's ``.torch.pt`` or the JAX package's ``.jax.pkl``
 (``loop.py:114-139,205-270``); ``checkpoint_every`` spaces the last-epoch
 checkpoints.  ``fold_bn_eval`` runs every eval pass with the BatchNorm
 statistics folded into the convolutions (:mod:`.fold_bn`).
-``data_parallel``, ``model_parallel`` other than 1 and ``orbax_dir`` are
-not ported and raise.
+
+``data_parallel`` runs the loop as one rank of the default process group
+(a one-rank group of its own when there is none:
+:func:`~..parallel.join_world`), the counterpart of the JAX package's mesh
+over its devices (``loop.py:172-183,324-335``): each pipeline takes the
+rank's rows of every batch (:func:`~..data.pipeline.adopt_world`), the
+trainer reduces over the world, and rank 0 alone removes the stale files
+(then every rank waits), writes the history and the checkpoints; every rank
+reads them on ``resume``.  ``model_parallel`` other than 1 and
+``orbax_dir`` are not ported and raise.
 """
 
 from __future__ import annotations
 
+import contextlib
 import csv
 import logging
 import os
@@ -30,9 +39,12 @@ import pickle
 from functools import partial
 
 import numpy as np
+import torch
 
 from .. import config as cfg
+from .. import parallel
 from ..analysis.ondevice_rescale import RESCALE_MEANS_FILENAME, RescaleMeanAccumulator
+from ..data.pipeline import adopt_world
 from .callbacks import LambdaCallback, ModelCheckpoint
 from .framework import Trainer
 from .history import append_to_history, save_history
@@ -54,12 +66,35 @@ def _raise_unported(**options):
             raise NotImplementedError(f"{name} is not ported yet (see ROADMAP.md)")
 
 
-def _construct_default_callbacks(H, save_path, checkpoint_monitor, save_with_structure=False):
+@contextlib.contextmanager
+def _data_parallel_world(enabled, device):
+    """The :class:`~..parallel.World` the loop runs over when ``enabled``
+    (None otherwise); a group made for it is destroyed on the way out."""
+    if not enabled:
+        yield None
+        return
+    world, made = parallel.join_world(device)
+    try:
+        yield world
+    finally:
+        parallel.leave_world(made)
+
+
+def _remove_stale_once(paths, world, device):
+    """Rank 0 removes ``paths``, then every rank of ``world`` waits for it."""
+    if parallel.is_main_process():
+        _remove_stale(paths)
+    if world is not None:
+        parallel.barrier(device)
+
+
+def _construct_default_callbacks(H, save_path, checkpoint_monitor, save_with_structure=False, write=True):
+    saving = [LambdaCallback(
+        on_epoch_end=partial(save_history, save_path=save_path, H=H, save_with_structure=save_with_structure)
+    )] if write else []
     return [
         LambdaCallback(on_epoch_end=partial(append_to_history, H=H)),
-        LambdaCallback(
-            on_epoch_end=partial(save_history, save_path=save_path, H=H, save_with_structure=save_with_structure)
-        ),
+        *saving,
         ModelCheckpoint(os.path.join(save_path, "model_best_val.pt"), checkpoint_monitor),
         LambdaCallback(on_epoch_end=lambda epoch, logs: logger.info("Saving model from epoch %s", epoch)),
     ]
@@ -153,89 +188,92 @@ def training_loop(
     ``model_last_epoch.pt`` when it and ``history.csv`` exist, and starts
     fresh otherwise."""
     _raise_unported(**{
-        "training_loop.data_parallel": data_parallel, "training_loop.orbax_dir": orbax_dir,
-        "training_loop.model_parallel": model_parallel != 1,
+        "training_loop.orbax_dir": orbax_dir, "training_loop.model_parallel": model_parallel != 1,
     })
-    callbacks = list(custom_callbacks)
-    os.makedirs(save_path, exist_ok=True)
+    with _data_parallel_world(data_parallel, device) as world:
+        callbacks = list(custom_callbacks)
+        os.makedirs(save_path, exist_ok=True)
 
-    history_csv_path = os.path.join(save_path, "history.csv")
-    history_pkl_path = os.path.join(save_path, "history.pkl")
-    last_ckpt = os.path.join(save_path, "model_last_epoch.pt")
-    resuming = bool(resume) and os.path.exists(last_ckpt) and os.path.exists(history_csv_path)
-    if resuming and not any(os.path.exists(f"{last_ckpt}{ext}") for ext in (".torch.pt", ".jax.pkl")):
-        raise FileNotFoundError(
-            f"training_loop.resume: {last_ckpt}.torch.pt (the port's sidecar) and {last_ckpt}.jax.pkl (the JAX "
-            "package's) are both missing"
+        history_csv_path = os.path.join(save_path, "history.csv")
+        history_pkl_path = os.path.join(save_path, "history.pkl")
+        last_ckpt = os.path.join(save_path, "model_last_epoch.pt")
+        resuming = bool(resume) and os.path.exists(last_ckpt) and os.path.exists(history_csv_path)
+        if resuming and not any(os.path.exists(f"{last_ckpt}{ext}") for ext in (".torch.pt", ".jax.pkl")):
+            raise FileNotFoundError(
+                f"training_loop.resume: {last_ckpt}.torch.pt (the port's sidecar) and {last_ckpt}.jax.pkl (the JAX "
+                "package's) are both missing"
+            )
+
+        H = _load_history(save_path) if resuming else {}
+        if not resuming:
+            logger.info("Removing %s and %s", history_pkl_path, history_csv_path)
+            _remove_stale_once([history_pkl_path, history_csv_path], world, torch.device(device))
+        empty_val = not validation_steps or (valid is not None and len(valid) == 0)
+        drop_best_val = empty_val and checkpoint_monitor.startswith("val")
+        if drop_best_val:
+            logger.warning(
+                "Empty validation split (validation_steps=%s): %s would be a constant 0.0; best-val "
+                "checkpointing is off for this run and only model_last_epoch.pt is written",
+                validation_steps, checkpoint_monitor,
+            )
+        defaults = _construct_default_callbacks(H, save_path, checkpoint_monitor,
+                                                save_with_structure=bool(custom_callbacks),
+                                                write=parallel.is_main_process())
+        if drop_best_val:
+            defaults = [c for c in defaults if not isinstance(c, ModelCheckpoint)]
+        callbacks += defaults
+
+        kind, ctrl_cfg = _detect_controller(custom_callbacks)
+        trainer = Trainer(
+            model,
+            optimizer,
+            controller_kind=kind,
+            controller_config=ctrl_cfg,
+            nummodalities=nummodalities,
+            verbose=verbose and parallel.is_main_process(),
+            device=device,
+            seed=seed,
+            fold_bn_eval=fold_bn_eval,
+            world=world,
         )
+        if world is not None:
+            adopt_world([train, valid, test], world)
+        for clbk in callbacks:
+            clbk.set_save_path(save_path)
+            clbk.set_model(trainer, ignore=False)
+            clbk.set_optimizer(optimizer)
+            clbk.set_config(config)
+            clbk.set_model_pytoune(trainer)
 
-    H = _load_history(save_path) if resuming else {}
-    if not resuming:
-        logger.info("Removing %s and %s", history_pkl_path, history_csv_path)
-        _remove_stale([history_pkl_path, history_csv_path])
-    empty_val = not validation_steps or (valid is not None and len(valid) == 0)
-    drop_best_val = empty_val and checkpoint_monitor.startswith("val")
-    if drop_best_val:
-        logger.warning(
-            "Empty validation split (validation_steps=%s): %s would be a constant 0.0; best-val "
-            "checkpointing is off for this run and only model_last_epoch.pt is written",
-            validation_steps, checkpoint_monitor,
+        initial_epoch = 1
+        if resuming:
+            initial_epoch = _resume(trainer, H, callbacks, last_ckpt, steps_per_epoch, checkpoint_monitor)
+        every = max(int(checkpoint_every), 1)
+        callbacks.append(LambdaCallback(
+            on_epoch_end=lambda epoch, logs: trainer.save_weights(last_ckpt) if epoch % every == 0 else None
+        ))
+
+        trainer.train_loop(
+            train,
+            valid_generator=valid,
+            test_generator=test,
+            test_steps=test_steps,
+            validation_steps=validation_steps,
+            steps_per_epoch=steps_per_epoch,
+            epochs=n_epochs - 1,  # quirk #3 (reference: src/training_loop.py:141)
+            callbacks=callbacks,
+            initial_epoch=initial_epoch,
         )
-    defaults = _construct_default_callbacks(H, save_path, checkpoint_monitor, save_with_structure=bool(custom_callbacks))
-    if drop_best_val:
-        defaults = [c for c in defaults if not isinstance(c, ModelCheckpoint)]
-    callbacks += defaults
-
-    kind, ctrl_cfg = _detect_controller(custom_callbacks)
-    trainer = Trainer(
-        model,
-        optimizer,
-        controller_kind=kind,
-        controller_config=ctrl_cfg,
-        nummodalities=nummodalities,
-        verbose=verbose,
-        device=device,
-        seed=seed,
-        fold_bn_eval=fold_bn_eval,
-    )
-    for clbk in callbacks:
-        clbk.set_save_path(save_path)
-        clbk.set_model(trainer, ignore=False)
-        clbk.set_optimizer(optimizer)
-        clbk.set_config(config)
-        clbk.set_model_pytoune(trainer)
-
-    initial_epoch = 1
-    if resuming:
-        initial_epoch = _resume(trainer, H, callbacks, last_ckpt, steps_per_epoch, checkpoint_monitor)
-    every = max(int(checkpoint_every), 1)
-    callbacks.append(LambdaCallback(
-        on_epoch_end=lambda epoch, logs: trainer.save_weights(last_ckpt) if epoch % every == 0 else None
-    ))
-
-    trainer.train_loop(
-        train,
-        valid_generator=valid,
-        test_generator=test,
-        test_steps=test_steps,
-        validation_steps=validation_steps,
-        steps_per_epoch=steps_per_epoch,
-        epochs=n_epochs - 1,  # quirk #3 (reference: src/training_loop.py:141)
-        callbacks=callbacks,
-        initial_epoch=initial_epoch,
-    )
-    return trainer
+        return trainer
 
 
-def _construct_default_eval_callbacks(H, save_path, save_with_structure):
+def _construct_default_eval_callbacks(H, save_path, save_with_structure, write=True):
     history_batch = os.path.join(save_path, "eval_history_batch")
     os.makedirs(history_batch, exist_ok=True)
-    return [
-        LambdaCallback(on_epoch_end=partial(append_to_history, H=H)),
-        LambdaCallback(
-            on_epoch_end=partial(save_history, save_path=history_batch, H=H, save_with_structure=save_with_structure)
-        ),
-    ]
+    saving = [LambdaCallback(
+        on_epoch_end=partial(save_history, save_path=history_batch, H=H, save_with_structure=save_with_structure)
+    )] if write else []
+    return [LambdaCallback(on_epoch_end=partial(append_to_history, H=H)), *saving]
 
 
 @cfg.configurable
@@ -267,57 +305,61 @@ def evalution_loop(  # [sic] the reference's name, kept for the gin surface
     training run's train (or val) indices on the device and writes them as
     ``eval_history_batch/rescale_means.pkl`` (``loop.py:350-373,401-428``).
     Returns the :class:`Trainer`."""
-    _raise_unported(**{
-        "evalution_loop.data_parallel": data_parallel, "evalution_loop.model_parallel": model_parallel != 1,
-    })
-    trainer = Trainer(
-        model,
-        nummodalities=nummodalities,
-        device=device,
-        average_squeezemaps=average_squeezemaps,
-        mmtm_off=mmtm_off,
-        fold_bn_eval=fold_bn_eval,
-    )
-    trainer.load_weights(pretrained_weights_path)
+    _raise_unported(**{"evalution_loop.model_parallel": model_parallel != 1})
+    with _data_parallel_world(data_parallel, device) as world:
+        trainer = Trainer(
+            model,
+            nummodalities=nummodalities,
+            device=device,
+            average_squeezemaps=average_squeezemaps,
+            mmtm_off=mmtm_off,
+            fold_bn_eval=fold_bn_eval,
+            world=world,
+        )
+        trainer.load_weights(pretrained_weights_path)
+        if world is not None:
+            adopt_world([test], world)
 
-    selected = None
-    if ondevice_rescale:
-        # the training run's history.pickle conventionally lives in this
-        # save_path: the recording pass runs inside the training directory
-        with open(os.path.join(ondevice_rescale_training_path or save_path, "history.pickle"), "rb") as f:
-            training_history = pickle.load(f)
-        selected = np.asarray(training_history["val_indices" if ondevice_rescale_validation else "train_indices"][0])
-        trainer.rescale_accumulator = RescaleMeanAccumulator(selected, trainer.device)
+        selected = None
+        if ondevice_rescale:
+            # the training run's history.pickle conventionally lives in this
+            # save_path: the recording pass runs inside the training directory
+            with open(os.path.join(ondevice_rescale_training_path or save_path, "history.pickle"), "rb") as f:
+                training_history = pickle.load(f)
+            selected = np.asarray(training_history["val_indices" if ondevice_rescale_validation else "train_indices"][0])
+            trainer.rescale_accumulator = RescaleMeanAccumulator(selected, trainer.device, world)
 
-    os.makedirs(save_path, exist_ok=True)
-    history_batch = os.path.join(save_path, "eval_history_batch")
-    stale = [os.path.join(save_path, "eval_history.pkl"), os.path.join(save_path, "eval_history.csv")]
-    logger.info("Removing %s and %s", *stale)
-    # a means file left by an earlier recording must not stand for this one
-    _remove_stale(stale + [os.path.join(history_batch, RESCALE_MEANS_FILENAME)])
+        os.makedirs(save_path, exist_ok=True)
+        history_batch = os.path.join(save_path, "eval_history_batch")
+        stale = [os.path.join(save_path, "eval_history.pkl"), os.path.join(save_path, "eval_history.csv")]
+        logger.info("Removing %s and %s", *stale)
+        # a means file left by an earlier recording must not stand for this one
+        _remove_stale_once(stale + [os.path.join(history_batch, RESCALE_MEANS_FILENAME)], world, trainer.device)
 
-    H = {}
-    callbacks = list(custom_callbacks) + _construct_default_eval_callbacks(H, save_path, save_with_structure)
-    for clbk in callbacks:
-        clbk.set_save_path(save_path)
-        clbk.set_model(trainer, ignore=False)
-        clbk.set_config(config)
-        clbk.set_model_pytoune(trainer)
+        H = {}
+        callbacks = list(custom_callbacks) + _construct_default_eval_callbacks(H, save_path, save_with_structure,
+                                                                               write=parallel.is_main_process())
+        for clbk in callbacks:
+            clbk.set_save_path(save_path)
+            clbk.set_model(trainer, ignore=False)
+            clbk.set_config(config)
+            clbk.set_model_pytoune(trainer)
 
-    trainer.eval_loop(test, epochs=0, test_steps=test_steps, callbacks=callbacks)
+        trainer.eval_loop(test, epochs=0, test_steps=test_steps, callbacks=callbacks)
 
-    if trainer.rescale_accumulator is not None:
-        means, count = trainer.rescale_accumulator.means()
-        out_path = os.path.join(history_batch, RESCALE_MEANS_FILENAME)
-        with open(out_path, "wb") as f:
-            pickle.dump({
-                "key": "test_squeezedmaps_array_list",
-                "validation": bool(ondevice_rescale_validation),
-                "means": means,
-                "count": count,
-                # the index set the means were taken over: get_rescale_weights
-                # takes them only when its own selection is the same
-                "selected": np.asarray(selected, np.int64),
-            }, f)
-        logger.info("on-device rescale means written to %s (%d member samples)", out_path, count)
-    return trainer
+        if trainer.rescale_accumulator is not None:
+            means, count = trainer.rescale_accumulator.means()  # on every rank: it sums over the world
+            if parallel.is_main_process():
+                out_path = os.path.join(history_batch, RESCALE_MEANS_FILENAME)
+                with open(out_path, "wb") as f:
+                    pickle.dump({
+                        "key": "test_squeezedmaps_array_list",
+                        "validation": bool(ondevice_rescale_validation),
+                        "means": means,
+                        "count": count,
+                        # the index set the means were taken over: get_rescale_weights
+                        # takes them only when its own selection is the same
+                        "selected": np.asarray(selected, np.int64),
+                    }, f)
+                logger.info("on-device rescale means written to %s (%d member samples)", out_path, count)
+        return trainer

@@ -20,6 +20,14 @@ float32 (B, C) tensors under ``mmtmscales_list`` /
 ``squeezedmaps_array_list``, nested [MMTM][view].  The JAX package packs
 them into one flat buffer for its TPU's remote link (``steps.py:196-200``);
 here they stay separate tensors, fetched once a pass by the trainer.
+
+Under data parallelism (:func:`~..parallel.data_parallel`, entered by the
+trainer) each rank runs the step on its rows of the global batch: the loss
+divides its masked sums by the world's valid count, the gradients are
+summed over the world right after the backward, before the BDR sums, so
+the BDR norms, SGD and the controller see the global gradient and stay
+identical on every rank, and the loss and accuracies are summed over the
+world into the joined batch's.
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ from typing import Callable, Dict, Optional
 import torch
 
 from ..data.transforms import preprocess
+from ..parallel import mesh as parallel
 from .bdr import GroupReducer
 from .controller import (
     ControllerState,
@@ -39,7 +48,7 @@ from .controller import (
     random_update,
     weakest_update,
 )
-from .metrics import blend_and_per_view_acc, blend_loss
+from .metrics import blend_and_per_view_acc, blend_loss, valid_count
 
 
 RECORD_KEYS = ("mmtmscales_list", "squeezedmaps_array_list")
@@ -64,9 +73,20 @@ def make_controller_update(kind: str, num_modalities: int, *, draw: Optional[Cal
     return null_update
 
 
-def _step_outputs(logits, labels, mask, loss):
-    blend_acc, per_view_acc = blend_and_per_view_acc(logits, labels, mask)
-    return {"loss": loss.detach(), "acc": blend_acc, "acc_modal": per_view_acc}
+def _world_count(mask):
+    """The world's valid count under data parallelism, else None (each
+    mean then divides by its own batch's)."""
+    return valid_count(mask) if parallel.active() is not None else None
+
+
+def _step_outputs(logits, labels, mask, loss, count):
+    blend_acc, per_view_acc = blend_and_per_view_acc(logits, labels, mask, count)
+    out = {"loss": loss.detach(), "acc": blend_acc, "acc_modal": per_view_acc}
+    if parallel.active() is not None:
+        # the ranks' shares of the joined batch's means, summed in one collective
+        total = parallel.all_reduce_(torch.cat([out["loss"].reshape(1), blend_acc.reshape(1), per_view_acc]))
+        out = {"loss": total[0], "acc": total[1], "acc_modal": total[2:]}
+    return out
 
 
 def _records(model, scales, squeezes) -> dict:
@@ -99,11 +119,14 @@ def train_step(
     x = preprocess(batch["images"], train=True, flip=flips, dtype=model.dtype)
     mask, labels = batch["mask"], batch["labels"]
     _, logits, scales, squeezes = model(x, ctrl.curation_mode, ctrl.caring_modality, train=True, valid_mask=mask)
-    loss = blend_loss(logits, labels, mask)
+    count = _world_count(mask)
+    loss = blend_loss(logits, labels, mask, count)
 
     params = [p for group in optimizer.param_groups for p in group["params"]]
     optimizer.zero_grad(set_to_none=True)
     loss.backward()
+    if parallel.active() is not None:
+        parallel.all_reduce_grads_(params)
     with torch.no_grad():
         gn = reducer([p.grad for p in params])
         wn = reducer(params)
@@ -111,7 +134,7 @@ def train_step(
     new_ctrl = controller_update(ctrl, gn, wn, unlock)
 
     with torch.no_grad():
-        out = _step_outputs(logits, labels, mask, loss)
+        out = _step_outputs(logits, labels, mask, loss, count)
     out.update(d_BDR=new_ctrl.d_BDR, curation_mode=new_ctrl.curation_mode,
                caring_modality=new_ctrl.caring_modality, curated=ctrl.curation_mode)
     out.update(_records(model, scales, squeezes))
@@ -132,6 +155,7 @@ def eval_step(model, ctrl: ControllerState, batch: Dict[str, torch.Tensor], *, m
         x, ctrl.curation_mode, ctrl.caring_modality, train=False, valid_mask=mask,
         mmtm_off=mmtm_off, average_squeezemaps=average_squeezemaps,
     )
-    out = _step_outputs(logits, labels, mask, blend_loss(logits, labels, mask))
+    count = _world_count(mask)
+    out = _step_outputs(logits, labels, mask, blend_loss(logits, labels, mask, count), count)
     out.update(_records(model, scales, squeezes))
     return out

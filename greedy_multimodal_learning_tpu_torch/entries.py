@@ -4,7 +4,13 @@ greedy_multimodal_learning_tpu_torch.train``, and ``eval_`` (``:94-157``),
 driven by ``python -m greedy_multimodal_learning_tpu_torch.eval`` or, in
 process, by :func:`~.run_api.run_entry`.  With ``MMTM_MVCNN.pretraining``
 both start every tower from a local torchvision ResNet-18 trunk after the
-seeded initialization (``entries.py:69-75,139-143``)."""
+seeded initialization (``entries.py:69-75,139-143``).
+
+Both start ``torch.distributed`` from ``torchrun``'s environment when it is
+there (:func:`~.parallel.maybe_initialize_distributed`); a rank then runs
+on ``cuda:<LOCAL_RANK>`` unless the bindings name a device
+(:func:`~.parallel.rank_device`), and ``training_loop.data_parallel`` /
+``evalution_loop.data_parallel`` run over the ranks."""
 
 from __future__ import annotations
 
@@ -13,6 +19,7 @@ import logging
 import torch
 
 from . import config as cfg
+from . import parallel
 from .analysis import get_rescale_weights
 from .bootstrap import build_model_and_loaders, init_model, resolve_device, select_split
 from .engine import callbacks as avail_callbacks
@@ -67,7 +74,8 @@ def train(save_path, wd=0.0, lr=0.1, momentum=0.0, batch_size=8, callbacks=(), s
     """Build the model, data and optimizer and run :func:`training_loop`.
     Runs on the card unless ``device='cpu'`` is bound.  Returns the
     :class:`~.engine.framework.Trainer`."""
-    device = resolve_device(device)
+    parallel.maybe_initialize_distributed()
+    device = resolve_device(parallel.rank_device(device))
     set_matmul_precision(matmul_precision)
     net, (train_loader, valid_loader, test_loader) = build_model_and_loaders(model, batch_size, device)
     custom = construct_callbacks(callbacks)
@@ -101,7 +109,8 @@ def eval_(save_path, target_data_split="test", pretrained_weights_path=None, bat
     MMTM runs with the cross-modal flow cut.  Runs on the card unless
     ``device='cpu'`` is bound.  Returns the
     :class:`~.engine.framework.Trainer`."""
-    device = resolve_device(device)
+    parallel.maybe_initialize_distributed()
+    device = resolve_device(parallel.rank_device(device))
     set_matmul_precision(matmul_precision)
     model_scope = model  # gin scope of the model family's bindings
     net, loaders = build_model_and_loaders(model, batch_size, device)

@@ -16,8 +16,13 @@ the GPU (bind ``eval_.device='cpu'`` for the CPU).
 from __future__ import annotations
 
 from .entries import eval_
+from .parallel import leave_world, maybe_initialize_distributed
 from .utils import configure_logger, gin_wrap
 
 if __name__ == "__main__":
     configure_logger("")
-    gin_wrap(eval_)
+    made = maybe_initialize_distributed()
+    try:
+        gin_wrap(eval_)
+    finally:
+        leave_world(made)

@@ -12,6 +12,13 @@ statistics cover the unmasked rows only, over every axis but the channel.
 ``nn.remat``): its activations are recomputed in the backward pass instead
 of kept, and the recompute leaves the BatchNorm running statistics alone,
 so they take one update a forward, as with flax.
+
+Under data parallelism (:func:`~..parallel.data_parallel`) the train-mode
+statistics are the world's: the sums and the valid count, then the centred
+sums of squares, each summed over the ranks through a differentiable
+all-reduce, so the backward sums the ranks' upstream gradients as
+``SyncBatchNorm``'s does and every rank's running statistics take the global
+mean, variance and count.
 """
 
 from __future__ import annotations
@@ -24,6 +31,8 @@ import torch
 import torch.utils.checkpoint
 import torch.nn.functional as F
 from torch import nn
+
+from ..parallel import mesh as parallel
 
 
 class Conv2d(nn.Conv2d):
@@ -98,7 +107,8 @@ class _MaskedBatchNorm:
       float32; the normalize uses the biased variance, the running variance
       takes the unbiased one ``var * n / max(n - 1, 1)``.  ``F.batch_norm``
       cannot mask, so this is plain torch ops.  A :func:`rematerialize` recompute
-      does not update the running statistics a second time."""
+      does not update the running statistics a second time.  Under data
+      parallelism both passes' sums, and the count, are the world's."""
 
     def forward(self, x, train: bool = False, mask=None):
         if not train:
@@ -109,9 +119,17 @@ class _MaskedBatchNorm:
         m = torch.ones(x.shape[0], device=x.device) if mask is None else mask.float()
         m = m.view((-1,) + (1,) * (x.dim() - 1))
         n = m.sum() * math.prod(x.shape[2:])
-        mean = (xf * m).sum(dim=dims) / n
+        total = (xf * m).sum(dim=dims)
+        reduce = parallel.active() is not None
+        if reduce:
+            total, n = parallel.differentiable_sum(torch.cat([total, n[None]])).split([total.numel(), 1])
+            n = n[0].detach()  # a count: no gradient
+        mean = total / n
         centered = xf - mean.view(per_channel)
-        var = (centered.square() * m).sum(dim=dims) / n
+        squares = (centered.square() * m).sum(dim=dims)
+        if reduce:
+            squares = parallel.differentiable_sum(squares)
+        var = squares / n
         if not getattr(_RECOMPUTE, "active", False):
             self._update_running(mean, var, n)
         inv = torch.rsqrt(var + self.eps) * self.weight

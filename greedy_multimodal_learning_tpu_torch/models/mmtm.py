@@ -5,8 +5,10 @@
 2. joint excitation: relu(fc_squeeze(concat(squeezes))),
 3. per-modality gates: sigmoid(fc_<name>(excitation)),
 4. running-average gate buffers updated on every forward, eval included,
-   with a step counter; ``bug_compat`` replicates the reference's update of
-   every running average from the first modality's gate (2 modalities only),
+   with a step counter, from the gate means over the valid rows (over the
+   world's rows under data parallelism, on every branch); ``bug_compat``
+   replicates the reference's update of every running average from the
+   first modality's gate (2 modalities only),
 5. curation: the cared-for modality's gate is replaced by the post-update
    running average,
 6. ``turnoff_cross_modal_flow`` (``mmtm.py:150-166``): each modality sees its
@@ -38,6 +40,7 @@ from torch import nn
 
 from .. import config as cfg
 from ..ops.mmtm_gating import MMTMGatingFunction
+from ..parallel import mesh as parallel
 from .layers import Linear
 
 
@@ -147,7 +150,6 @@ class MMTM(nn.Module):
         dtype = features[0].dtype
         device = features[0].device
         mask = torch.ones(batch, device=device) if valid_mask is None else valid_mask.float()
-        denom = mask.sum().clamp(min=1.0)
 
         pre_scaled = None  # the kernel path returns the live-gate-scaled features
         if self._use_kernel(features) and not turnoff_cross_modal_flow:
@@ -191,7 +193,14 @@ class MMTM(nn.Module):
         # --- running-average gate buffers (updated every forward) ---
         with torch.no_grad():
             step = self.step
-            gate_means = [(g * mask[:, None]).sum(dim=0) / denom for g in gates]
+            sums, count = [(g * mask[:, None]).sum(dim=0) for g in gates], mask.sum()
+            if parallel.active() is not None:
+                # the world's gate sums and valid rows, in one collective
+                *sums, count = parallel.all_reduce_(torch.cat(sums + [count[None]])).split(
+                    [s.numel() for s in sums] + [1])
+                count = count[0]
+            denom = count.clamp(min=1.0)
+            gate_means = [s / denom for s in sums]
             new_running = []
             for i, name in enumerate(self.modality_names):
                 src = gate_means[0] if (self.bug_compat and n == 2) else gate_means[i]

@@ -1,0 +1,28 @@
+"""Data parallelism over ``torch.distributed`` ranks
+(``greedy_multimodal_learning_tpu/parallel``): see :mod:`.mesh` for what a
+rank computes and :mod:`.multihost` for processes, nodes and devices."""
+
+from .mesh import (
+    World,
+    active,
+    all_reduce_,
+    all_reduce_grads_,
+    barrier,
+    broadcast_,
+    broadcast_module_,
+    collective_count,
+    data_parallel,
+    differentiable_sum,
+    gather,
+    reset_collective_count,
+    world_from_process_group,
+)
+from .multihost import (
+    is_main_process,
+    join_world,
+    leave_world,
+    maybe_initialize_distributed,
+    node_of_process,
+    process_local_indices,
+    rank_device,
+)

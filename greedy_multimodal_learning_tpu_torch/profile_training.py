@@ -2,6 +2,7 @@
 
     python -m greedy_multimodal_learning_tpu_torch.profile_training [--batch 128] [--steps 10]
     python -m greedy_multimodal_learning_tpu_torch.profile_training --family 3dcnn [--batch 8] [--steps 10]
+    python -m greedy_multimodal_learning_tpu_torch.profile_training --data-parallel [--batch 256] [--steps 10]
 
 For each of f32 and bf16, with the fused gating kernels on and off, it runs
 ``Trainer.train_batch`` (the guided controller, SGD at lr 0.1) on a seeded
@@ -9,7 +10,10 @@ uint8 batch already on the device (224², 2 views, 40 classes, random seeded
 weights) and prints one JSON line with the fields below.  ``--family
 3dcnn`` does the same for the 3D family at full width (three r3d-18
 towers, RGB + depth + flow clips of 16 frames of 112², 25 classes, default
-batch 8), whose gating is always eager.  Each line has:
+batch 8), whose gating is always eager.  ``--data-parallel`` runs the
+kernel path of the 2-D family in each dtype without and with a one-rank
+NCCL group (``training_loop.data_parallel`` at world 1), in turns plain,
+world 1, world 1, plain.  Each line has:
 
 * ``step_ms``: host clock around one step ending in a synchronize, median
   of ``--steps``, and ``samples_per_s`` from it;
@@ -23,7 +27,10 @@ batch 8), whose gating is always eager.  Each line has:
 * ``convolution_ms_per_step``: device time of the kernels whose names mark
   them as cuDNN's convolutions (forward, data and weight gradients);
 * ``kernels``: device time per step of the top kernels by name, from
-  ``torch.profiler``.
+  ``torch.profiler``;
+* ``world``: 1 under the one-rank group, else null, with
+  ``collectives_per_step`` and ``nccl_ms_per_step`` (device time of the
+  NCCL kernels).
 
 Needs a CUDA device; exits non-zero without one.
 """
@@ -43,11 +50,13 @@ from .bootstrap import init_model
 from .data.transforms import flip_shape
 from .engine import Trainer, make_optimizer
 from .models import MMTM3DCNN, MMTMMVCNN
+from .parallel import collective_count, join_world, leave_world
 from .profile_serving import device_rows, smi_line
 
 GATING_FORWARD = r"\bgating_fwd_kernel\b"
 GATING_BACKWARD = r"\b(gating_bwd_map_kernel|weight_grad_kernel)\b"
 ELEMENTWISE_REDUCE = r"elementwise_kernel|reduce_kernel"
+NCCL = r"nccl"
 CONVOLUTION = r"conv|xmma|implicit_gemm|cudnn|fprop|dgrad|wgrad"
 
 
@@ -60,7 +69,15 @@ FAMILIES = {
 }
 
 
-def profile_config(dtype, use_pallas, batch, steps, family="mvcnn"):
+def profile_config(dtype, use_pallas, batch, steps, family="mvcnn", world1=False):
+    world, made = join_world("cuda") if world1 else (None, False)
+    try:
+        return _profile(dtype, use_pallas, batch, steps, family, world)
+    finally:
+        leave_world(made)
+
+
+def _profile(dtype, use_pallas, batch, steps, family, world):
     build, sample, nclasses, groups = FAMILIES[family]
     model = init_model(build(dtype, use_pallas), 0, "cuda")
     trainer = Trainer(
@@ -70,6 +87,7 @@ def profile_config(dtype, use_pallas, batch, steps, family="mvcnn"):
         controller_config={"epsilon": 0.01, "curation_windowsize": 5, **groups},
         nummodalities=model.num_towers,
         device="cuda",
+        world=world,
     )
     g = torch.Generator(device="cuda").manual_seed(0)
     data = {
@@ -86,6 +104,9 @@ def profile_config(dtype, use_pallas, batch, steps, family="mvcnn"):
     for _ in range(3):
         step()
     torch.cuda.synchronize()
+    collectives = collective_count()
+    step()
+    collectives = collective_count() - collectives
     step_ms = []
     for _ in range(steps):
         t0 = time.perf_counter()
@@ -117,6 +138,9 @@ def profile_config(dtype, use_pallas, batch, steps, family="mvcnn"):
         "gating_backward_ms_per_step": matching(GATING_BACKWARD),
         "elementwise_reduce_ms_per_step": matching(ELEMENTWISE_REDUCE),
         "convolution_ms_per_step": matching(CONVOLUTION),
+        "world": world.size if world is not None else None,
+        "collectives_per_step": collectives,
+        "nccl_ms_per_step": matching(NCCL),
         "kernels": [{"name": name[:120], "ms_per_step": ms} for ms, name in rows[:15]],
     }
 
@@ -126,6 +150,8 @@ def main() -> int:
     parser.add_argument("--family", choices=sorted(FAMILIES), default="mvcnn")
     parser.add_argument("--batch", type=int, default=None, help="default: 128 (mvcnn), 8 (3dcnn)")
     parser.add_argument("--steps", type=int, default=10)
+    parser.add_argument("--data-parallel", action="store_true",
+                        help="the 2-D kernel path without and with a one-rank NCCL group")
     args = parser.parse_args()
     batch = args.batch or (128 if args.family == "mvcnn" else 8)
     if not torch.cuda.is_available():
@@ -134,6 +160,11 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     print(f"# {smi_line()} | torch {torch.__version__}", flush=True)
+    if args.data_parallel:
+        for dtype in (torch.float32, torch.bfloat16):
+            for world1 in (False, True, True, False):
+                print(json.dumps(profile_config(dtype, True, batch, args.steps, world1=world1)), flush=True)
+        return 0
     for dtype in (torch.float32, torch.bfloat16):
         for use_pallas in ((True, False) if args.family == "mvcnn" else (False,)):
             print(json.dumps(profile_config(dtype, use_pallas, batch, args.steps, args.family)), flush=True)

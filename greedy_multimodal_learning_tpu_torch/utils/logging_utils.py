@@ -80,8 +80,10 @@ def gin_wrap(fnc):
     """CLI dispatcher: ``prog SAVE_PATH CONFIG [BINDINGS]``.
 
     Config files are ``#``-separated mixins, bindings are ``#``-separated
-    lines."""
+    lines.  Under ``torchrun`` only rank 0 writes ``operative_config.gin``
+    and tees the output."""
     from .. import config as cfg
+    from ..parallel import is_main_process
 
     parser = argparse.ArgumentParser()
     parser.add_argument("save_path")
@@ -93,6 +95,9 @@ def gin_wrap(fnc):
     if not os.path.exists(args.save_path):
         logger.info("Creating folder %s", args.save_path)
         os.makedirs(args.save_path, exist_ok=True)
+    if not is_main_process():  # under torchrun, rank 0 writes the run's files
+        fnc(args.save_path)
+        return
     with open(os.path.join(args.save_path, "operative_config.gin"), "w") as f:
         f.write(cfg.operative_config_str())
     run_with_redirection(

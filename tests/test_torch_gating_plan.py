@@ -79,6 +79,16 @@ def test_every_224_site_keeps_its_maps_resident(direction, dtype, site):
     assert plan.mode == "resident" and plan.nmaps == 2
 
 
+@pytest.mark.parametrize("site", SITES)
+@pytest.mark.parametrize("batch", [256, 128])
+@pytest.mark.parametrize("direction", ["fwd", "bwd"])
+def test_the_dp_configs_rank_batches_stay_resident(direction, batch, site):
+    """configs/training_dp_v5e8.gin's global batch of 256 in bf16 as a rank
+    sees it: all of it at world 1, 128 rows at two ranks."""
+    plan = _plan((batch, *SITES[site]), "bfloat16", direction)
+    assert plan.mode == "resident" and plan.nmaps == 2 and plan.tiles * plan.n >= batch
+
+
 @pytest.mark.parametrize("direction", ["fwd", "bwd"])
 def test_bf16_oversize_sample_stays_resident(direction):
     """In bf16 the oversize sample's two resident maps fit a cluster (about

@@ -47,10 +47,11 @@ def test_importing_the_port_loads_no_jax():
     n_modules = int(r.stdout.split()[0])
     # the serving and training slices' modules, the analysis package, the eval
     # entry, the host library's loader (utils.native), the 3D family's models
-    # and clip data, and the side entries: BatchNorm folding, the sweep and
-    # its entry, run_api
-    assert n_modules >= 46, r.stdout
-    for name in ("engine.fold_bn", "engine.sweep", "eval_sweep", "run_api"):
+    # and clip data, the side entries (BatchNorm folding, the sweep and its
+    # entry, run_api) and data parallelism
+    assert n_modules >= 50, r.stdout
+    for name in ("engine.fold_bn", "engine.sweep", "eval_sweep", "run_api", "parallel", "parallel.mesh",
+                 "parallel.multihost", "parallel.launch"):
         assert f"greedy_multimodal_learning_tpu_torch.{name}" in r.stdout, name
 
 

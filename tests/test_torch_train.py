@@ -27,7 +27,7 @@ from greedy_multimodal_learning_tpu.utils.torch_compat import merge_loaded_param
 from greedy_multimodal_learning_tpu_torch import config as port_cfg
 from greedy_multimodal_learning_tpu_torch.bootstrap import init_model
 from greedy_multimodal_learning_tpu_torch.engine import load_weights
-from greedy_multimodal_learning_tpu_torch.entries import construct_callbacks, train
+from greedy_multimodal_learning_tpu_torch.entries import construct_callbacks, eval_, train
 from greedy_multimodal_learning_tpu_torch.models import MMTMMVCNN
 
 REPO = os.path.join(os.path.dirname(__file__), "..")
@@ -135,23 +135,27 @@ def test_callbacks_by_name():
 
 
 @pytest.mark.parametrize("binding, match", [
-    ("training_loop.data_parallel=True", "data_parallel"),
     ("training_loop.orbax_dir='ckpt'", "orbax_dir"),
     ("training_loop.model_parallel=2", "model_parallel"),
+    ("evalution_loop.model_parallel=2", "model_parallel"),
 ])
 def test_unported_loop_options_raise(tmp_path, binding, match):
+    """The options the port does not run raise, in the entry whose loop
+    takes them (``evalution_loop`` ones in ``eval_``)."""
     root = make_synthetic_modelnet(str(tmp_path / "data"), n_train=5, n_test=2, num_views=2, image_size=IMG, nclasses=NC)
     port_cfg.parse_config_files_and_bindings(
-        [CONFIG], "\n".join(_bindings(root) + ["train.device='cpu'", binding])
+        [CONFIG], "\n".join(_bindings(root) + ["train.device='cpu'", "eval_.device='cpu'", binding])
     )
+    entry = eval_ if binding.startswith("evalution_loop") else train
     with pytest.raises(NotImplementedError, match=match):
-        train(str(tmp_path / "run"))
+        entry(str(tmp_path / "run"))
 
 
 @pytest.mark.parametrize("binding", [
     "training_loop.fold_bn_eval=True",
     "MMTM_MVCNN.stem_s2d=True",
     "MMTM_MVCNN.remat=True",
+    "training_loop.data_parallel=True",  # over a one-rank group of its own: no process group here
 ])
 def test_ported_loop_options_train(tmp_path, binding):
     """Options that raised before they were ported: each trains an epoch on
