@@ -141,10 +141,29 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    every index once in the one process's order, the maps within the
    kernel's ``sq`` tolerance.  Samples/s of (a) both ways and of (b), the
    latter for correctness only (gloo goes through the host);
-14. a ``{"kernels": [...]}`` JSON line (with the launch counts of each 3D
-   run, all 0, of each phase-12 run and of phase 13's runs and ranks), the
-   ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  Each
-   phase's seconds are logged.
+14. tensor parallelism on the 2-D family at full width, ranks sharing
+   cuda:0 in gloo groups: (a) dp 1 × tp 2 (B=128, f32, TF32 off, cuDNN's
+   default algorithms, SGD momentum 0.9) against one process: three guided
+   steps, each from the one process's start, the last curating modality 1
+   with padding rows: per tensor within ``STEP_TOL`` of the update (L2),
+   the same curation decisions, losses within rtol 1e-4, both ranks' whole
+   states identical, on each rank 26 weights and their momentum buffers
+   holding half their output rows, 3 forward and 3 backward launches a
+   step on each rank, the collectives and their bytes a step by group; (b)
+   the ``train`` entry with ``configs/training_guided.gin#configs/training_dp_v5e8.gin``
+   and ``training_loop.model_parallel=2`` at dp 2 × tp 2 (four ranks, bf16,
+   B=256 at lr 0.4), two one-step epochs: every rank's whole state (the
+   model, SGD's momentum, the controller) equal bit for bit, the JAX
+   columns of phase 13's history, the checkpoint with the names and full
+   shapes of phase 13's world-1 checkpoint, which the one-process port
+   loads, phase 13's launches on every rank; (c) the recording ``eval_``
+   at tp 2 against phase 13's one-process recording: every index once in
+   its order, the maps within the kernel's ``sq`` tolerance.  Samples/s of
+   each, for correctness only;
+15. a ``{"kernels": [...]}`` JSON line (with the launch counts of each 3D
+   run, all 0, of each phase-12 run and of phase 13's and 14's runs and
+   ranks), the ``nvidia-smi`` line, and last ``{"ok": true, "device":
+   {...}}``.  Each phase's seconds are logged.
 
 Scratch files go to ``smoke_out/`` in the checkout (git-ignored); the
 synthetic splits, checkpoints, training and eval runs are removed at exit.
@@ -181,6 +200,7 @@ from greedy_multimodal_learning_tpu_torch.data.nvgesture import make_synthetic_n
 from greedy_multimodal_learning_tpu_torch.data.synthetic import make_synthetic_modelnet
 from greedy_multimodal_learning_tpu_torch.data.transforms import flip_shape, preprocess
 from greedy_multimodal_learning_tpu_torch.engine import Trainer, load_weights, make_optimizer
+from greedy_multimodal_learning_tpu_torch.engine.checkpoint import load_training_state
 from greedy_multimodal_learning_tpu_torch.engine.controller import ControllerState, random_draw
 from greedy_multimodal_learning_tpu_torch.engine.fold_bn import fold_batchnorm
 from greedy_multimodal_learning_tpu_torch.engine.sweep import eval_sweep
@@ -197,6 +217,7 @@ from greedy_multimodal_learning_tpu_torch.ops.mmtm_gating import (
     mmtm_gating_bwd_plain,
     mmtm_gating_plain,
 )
+from greedy_multimodal_learning_tpu_torch.parallel import tensor as tensor_parallel
 from greedy_multimodal_learning_tpu_torch.parallel.launch import run_ranks
 from greedy_multimodal_learning_tpu_torch.predict import predict_
 from greedy_multimodal_learning_tpu_torch.run_api import run_entry
@@ -1995,62 +2016,85 @@ def dp_step_rates(warmup=3):
     return rates
 
 
-def dp_batch(seed, pad=0):
-    """A global batch of DP_BATCH 224² samples on the card, the last ``pad``
+def dp_batch(seed, pad=0, batch=DP_BATCH):
+    """A global batch of ``batch`` 224² samples on the card, the last ``pad``
     rows padding."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     data = {
-        "images": torch.randint(0, 256, (DP_BATCH, 2, 224, 224, 3), generator=g, device="cuda", dtype=torch.uint8),
-        "labels": torch.randint(0, 40, (DP_BATCH,), generator=g, device="cuda", dtype=torch.int32),
-        "mask": torch.ones(DP_BATCH, device="cuda"),
+        "images": torch.randint(0, 256, (batch, 2, 224, 224, 3), generator=g, device="cuda", dtype=torch.uint8),
+        "labels": torch.randint(0, 40, (batch,), generator=g, device="cuda", dtype=torch.int32),
+        "mask": torch.ones(batch, device="cuda"),
     }
-    data["mask"][DP_BATCH - pad:] = 0.0
+    data["mask"][batch - pad:] = 0.0
     return data
 
 
 DP_PADS = (0, 0, DP_BATCH // 2)  # the third batch: the second rank's rows all padding
+# phase 13 (b)'s steps: the DP config's global batch and lr, no momentum
+DP_SETUP = {"batch": DP_BATCH, "pads": DP_PADS, "lr": DP_LR, "momentum": 0.0, "model_parallel": 1}
 
 
-def dp_trainer(world):
+def dp_trainer(world, setup=DP_SETUP):
+    """The seeded kernel-path trainer of phase 13 (b) and 14 (a); with a
+    world, every rank takes rank 0's state and, under tensor parallelism,
+    its rows of the wide weights."""
     model = init_model(MMTMMVCNN(nclasses=40, use_pallas=True), SEED, "cpu").to(
         device="cuda", memory_format=torch.channels_last)
-    return Trainer(model, make_optimizer(model.parameters(), lr=DP_LR), controller_kind="guided",
-                   controller_config={"epsilon": 0.01, "curation_windowsize": 5}, device="cuda", seed=SEED,
-                   world=world)
+    trainer = Trainer(model, make_optimizer(model.parameters(), lr=setup["lr"], momentum=setup["momentum"]),
+                      controller_kind="guided", controller_config={"epsilon": 0.01, "curation_windowsize": 5},
+                      device="cuda", seed=SEED, world=world)
+    if world is not None and world.model_size > 1:
+        trainer.distribute()
+    return trainer
 
 
 def dp_state(trainer):
-    return {"model": {k: v.detach().cpu().clone() for k, v in trainer.model.state_dict().items()},
-            "ctrl": {k: v.cpu().clone() for k, v in trainer.ctrl.as_dict().items()}}
+    """The trainer's state whole (a sharded model's weights and momentum
+    joined): the model, the controller and SGD's momentum by name."""
+    with tensor_parallel.unsharded(trainer.model, trainer.optimizer):
+        names = {p: n for n, p in trainer.model.named_parameters()}
+        return {"model": {k: v.detach().cpu().clone() for k, v in trainer.model.state_dict().items()},
+                "ctrl": {k: v.cpu().clone() for k, v in trainer.ctrl.as_dict().items()},
+                "momentum": {names[p]: s["momentum_buffer"].cpu().clone() for p, s in trainer.optimizer.state.items()
+                             if s.get("momentum_buffer") is not None}}
 
 
-def dp_step(trainer, t, start, world):
-    """Guided step ``t`` from ``start`` on this rank's rows of the global
-    batch, with its rows of the global flips; returns (outputs, seconds)."""
-    trainer.model.load_state_dict(start["model"])
+def dp_step(trainer, t, start, world, setup=DP_SETUP):
+    """Guided step ``t`` from ``start`` (loaded whole) on this rank's rows of
+    the global batch, with its rows of the global flips; returns (outputs,
+    seconds, the step's collectives, their bytes by group)."""
+    with tensor_parallel.unsharded(trainer.model, trainer.optimizer):
+        trainer.model.load_state_dict(start["model"])
+        for name, p in trainer.model.named_parameters():
+            if name in start["momentum"]:
+                buf = torch.empty_like(p)  # the parameter's memory format, as SGD makes its buffers
+                buf.copy_(start["momentum"][name])
+                trainer.optimizer.state[p]["momentum_buffer"] = buf
     trainer.ctrl = ControllerState(**{k: v.cuda() for k, v in start["ctrl"].items()})
     trainer.step = t
-    data = dp_batch(40 + t, DP_PADS[t])
+    data = dp_batch(40 + t, setup["pads"][t], setup["batch"])
     if world is not None:
-        rows = world.rows(DP_BATCH)
+        rows = world.rows(setup["batch"])
         data = {k: v[rows] for k, v in data.items()}
     flips = trainer.train_flips(*flip_shape(data["images"].shape))
     torch.cuda.synchronize()
+    parallel.reset_collective_count()
     t0 = time.perf_counter()
     out = trainer.train_batch(data, flips, torch.tensor(True, device="cuda"))
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
+    nbytes = bytes_by_group(world) if world is not None else {}
     return {"loss": float(out["loss"]), "acc": float(out["acc"]), "curated": bool(out["curated"]),
             "curation_mode": bool(trainer.ctrl.curation_mode), "caring_modality": int(trainer.ctrl.caring_modality)
-            }, seconds
+            }, seconds, parallel.collective_count(), nbytes
 
 
-def dp_one_process(path):
+def dp_one_process(path, setup=DP_SETUP):
     """(b)'s reference: DP_STEPS guided steps of one process on the global
     batches (f32, TF32 off) from the seeded model, the controller deciding
     each step but the last, which curates modality 1 (its forward reads
     the running averages); each step's start and end saved to ``path``."""
-    trainer = dp_trainer(None)
+    trainer = dp_trainer(None, setup)
     starts, ends, outs = [], [], []
     for t in range(DP_STEPS):
         if t == DP_STEPS - 1:
@@ -2058,7 +2102,7 @@ def dp_one_process(path):
                                                caring_modality=torch.tensor(1, dtype=torch.int32, device="cuda"),
                                                curation_step=torch.tensor(0, dtype=torch.int32, device="cuda"))
         starts.append(dp_state(trainer))
-        out, _ = dp_step(trainer, t, starts[-1], None)
+        out, *_ = dp_step(trainer, t, starts[-1], None, setup)
         outs.append(out)
         ends.append(dp_state(trainer)["model"])
     torch.save({"starts": starts, "ends": ends, "outs": outs}, path)
@@ -2067,45 +2111,67 @@ def dp_one_process(path):
     return outs
 
 
-def state_digest(model) -> str:
+def state_digest(state) -> str:
     h = hashlib.sha256()
-    for k, v in model.state_dict().items():
+    for k, v in state.items():
         h.update(k.encode())
         h.update(v.detach().cpu().contiguous().view(-1).view(torch.uint8).numpy().tobytes())
     return h.hexdigest()
 
 
-def dp_rank(rank, ref_path, record_bindings, record_path):
-    """One of DP_RANKS ranks sharing cuda:0 in a gloo group (NCCL refuses two
-    ranks on one card): (b) each guided step from the one-process run's
-    start, on this rank's rows, against that run's end; (c) the recording
-    ``eval_`` with ``evalution_loop.data_parallel``."""
+def whole_digest(whole) -> str:
+    """The digest of :func:`dp_state`'s model, momentum and controller,
+    each name under its part's."""
+    return state_digest({f"{part}/{k}": v for part in ("model", "momentum", "ctrl") for k, v in whole[part].items()})
+
+
+def bytes_by_group(world):
+    """The bytes the collectives carried since the count was reset, by the
+    group they ran over: ``model`` (the world's model group), ``data`` (its
+    data group) or ``world`` (the default group: the data group at model
+    size 1)."""
+    names = {world.model_group: "model", world.data_group: "data", None: "world"}
+    return {names[g]: n for g, n in parallel.collective_bytes().items()}
+
+
+def dp_rank(rank, ref_path, record_bindings, record_path, setup=DP_SETUP):
+    """One of the ranks sharing cuda:0 in a gloo group (NCCL refuses two
+    ranks on one card), ``setup["model_parallel"]`` a model group: phase 13
+    (b) / 14 (a) each guided step from the one-process run's start, on this
+    rank's rows, against that run's end (the rank's state read whole); phase
+    13 / 14 (c) the recording ``eval_`` with ``evalution_loop.data_parallel``
+    and that ``model_parallel``."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.cuda.set_device(0)
     dist.init_process_group("gloo", init_method="env://", timeout=DP_GROUP_TIMEOUT)
     try:
-        world = parallel.world_from_process_group()
+        world = parallel.world_from_process_group(setup["model_parallel"])
         ref = torch.load(ref_path, weights_only=False)
-        trainer = dp_trainer(world)
+        trainer = dp_trainer(world, setup)
         steps = []
         for t in range(DP_STEPS):
             mmtm_gating.launches = mmtm_gating_bwd.launches = 0
-            parallel.reset_collective_count()
-            out, seconds = dp_step(trainer, t, ref["starts"][t], world)
+            out, seconds, collectives, nbytes = dp_step(trainer, t, ref["starts"][t], world, setup)
             start, want = ref["starts"][t]["model"], ref["ends"][t]
-            got = {k: v.detach().cpu() for k, v in trainer.model.state_dict().items()}
-            ratios = l2_over_update(float_state_of(got), float_state_of(want), float_state_of(start))
+            whole = dp_state(trainer)
+            ratios = l2_over_update(float_state_of(whole["model"]), float_state_of(want), float_state_of(start))
             beyond = [k for k, (_, d, u) in ratios.items() if d > STEP_TOL * u + 1e-7]
             steps.append({**out, "seconds": seconds, "fwd_launches": mmtm_gating.launches,
-                          "bwd_launches": mmtm_gating_bwd.launches, "collectives": parallel.collective_count(),
-                          "l2_diff_over_update": max(v[0] for v in ratios.values()), "beyond": beyond,
-                          "digest": state_digest(trainer.model)})
+                          "bwd_launches": mmtm_gating_bwd.launches, "collectives": collectives,
+                          "collective_bytes": nbytes, "l2_diff_over_update": max(v[0] for v in ratios.values()),
+                          "beyond": beyond, "digest": whole_digest(whole)})
+        names = {p: n for n, p in trainer.model.named_parameters()}
+        held = {"params": {n: tuple(p.shape) for n, p in trainer.model.named_parameters()},
+                "momentum": {names[p]: tuple(s["momentum_buffer"].shape) for p, s in trainer.optimizer.state.items()
+                             if s.get("momentum_buffer") is not None}}
         del trainer, ref
         torch.cuda.empty_cache()
         cfg.clear_config()
-        cfg.parse_config_files_and_bindings([os.path.join(REPO, "configs/recording.gin")],
-                                            "\n".join(record_bindings + ["evalution_loop.data_parallel=True"]))
+        cfg.parse_config_files_and_bindings(
+            [os.path.join(REPO, "configs/recording.gin")],
+            "\n".join(record_bindings + ["evalution_loop.data_parallel=True",
+                                         f"evalution_loop.model_parallel={setup['model_parallel']}"]))
         with built_pipelines() as built, contextlib.redirect_stdout(io.StringIO()):
             mmtm_gating.launches = mmtm_gating_bwd.launches = 0
             eval_(record_path)
@@ -2113,13 +2179,22 @@ def dp_rank(rank, ref_path, record_bindings, record_path):
             record = {"fwd_launches": mmtm_gating.launches, "bwd_launches": mmtm_gating_bwd.launches,
                       "resident": [(p.resident, str(p.device)) for p in built if p.epoch > 0]}
         cfg.clear_config()
-        return {"steps": steps, "record": record}
+        return {"steps": steps, "record": record, "held": held, "world": (world.data_index, world.model_index)}
     finally:
         dist.destroy_process_group()
 
 
 def float_state_of(state):
     return {k: v.float() for k, v in state.items() if v.is_floating_point()}
+
+
+def dp_record_bindings(run_dir):
+    """Phase 13's and 14's recording ``eval_`` on phase 5's f32 run."""
+    return [
+        f"get_mvdcndata.root_dir='{TRAIN_DATA}'", "get_mvdcndata.specific_views=[0, 1]",
+        "MMTM_mitigate.use_pallas=True", f"eval_.batch_size={DP_BATCH}", "eval_.device='cuda:0'",
+        f"eval_.pretrained_weights_path='{os.path.join(run_dir, 'model_best_val.pt')}'",
+    ]
 
 
 def dp_phase(run_dir):
@@ -2131,11 +2206,7 @@ def dp_phase(run_dir):
 
     ref_path = os.path.join(WORK, "dp_reference.pt")
     rows = N_TRAIN + N_VAL  # recording.gin: valid_size=0, the whole train file
-    record_bindings = [
-        f"get_mvdcndata.root_dir='{TRAIN_DATA}'", "get_mvdcndata.specific_views=[0, 1]",
-        "MMTM_mitigate.use_pallas=True", f"eval_.batch_size={DP_BATCH}", "eval_.device='cuda:0'",
-        f"eval_.pretrained_weights_path='{os.path.join(run_dir, 'model_best_val.pt')}'",
-    ]
+    record_bindings = dp_record_bindings(run_dir)
     one_record = os.path.join(TRAIN_RUNS, "dp_record_one")
     ranks_record = os.path.join(TRAIN_RUNS, "dp_record_ranks")
     try:
@@ -2219,6 +2290,203 @@ def dp_phase(run_dir):
     return report
 
 
+# ---- phase 14 helpers ------------------------------------------------------------
+
+
+TP = 2
+# (a): dp 1 × tp 2 at B=128, SGD momentum 0.9 so that the momentum buffers are
+# split too, cuDNN's default algorithms: the two ranks compute the replicated
+# part of the step each on its own and must still end with the same bits
+TP_SETUP = {"batch": BATCH, "pads": (0, 0, BATCH // 4), "lr": 0.1, "momentum": 0.9, "model_parallel": TP}
+TP_GRID = 4  # (b): dp 2 × tp 2 ranks
+TP_SHARDED = 26  # the weights the JAX rule splits: layer3/4's 5 convolutions a tower, mmtm3/4's 3 linears
+
+
+def tp_train_rank(rank, bindings, save_path):
+    """(b) one of TP_GRID ranks sharing cuda:0 in a gloo group: the ``train``
+    entry with the DP config and ``model_parallel=2``, and the digest of the
+    rank's whole state after it."""
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method="env://", timeout=DP_GROUP_TIMEOUT)
+    try:
+        cfg.clear_config()
+        cfg.parse_config_files_and_bindings([os.path.join(REPO, c) for c in DP_CONFIGS], "\n".join(bindings))
+        with built_pipelines() as built, contextlib.redirect_stdout(io.StringIO()):
+            mmtm_gating.launches = mmtm_gating_bwd.launches = 0
+            t0 = time.time()
+            trainer = train(save_path)
+            torch.cuda.synchronize()
+            out = {"fwd_launches": mmtm_gating.launches, "bwd_launches": mmtm_gating_bwd.launches,
+                   "wall_s": time.time() - t0, "steps": trainer.step, "dtype": str(trainer.model.dtype),
+                   "world": (trainer.world.size, trainer.world.model_size, trainer.world.data_index,
+                             trainer.world.model_index),
+                   "sharded": len(tensor_parallel.sharded_weights(trainer.model)),
+                   "resident": [(p.resident, str(p.device)) for p in built if p.epoch > 0],
+                   "digest": whole_digest(dp_state(trainer))}
+        cfg.clear_config()
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
+def check_held(rank, held):
+    """TP_SHARDED weights of each rank hold half their 256 or 512 output rows,
+    their momentum buffers alike; every other parameter is whole."""
+    whole = {n: tuple(p.shape) for n, p in MMTMMVCNN(nclasses=40).named_parameters()}
+    split = {n: s for n, s in held["params"].items() if s != whole[n]}
+    if len(split) != TP_SHARDED or any(whole[n][0] not in (256, 512) or s != (whole[n][0] // TP,) + whole[n][1:]
+                                       for n, s in split.items()):
+        raise AssertionError(f"tp rank {rank}: {len(split)} weights split, {sorted(split.items())[:4]}")
+    if held["momentum"] != held["params"]:
+        raise AssertionError(f"tp rank {rank}: momentum buffers {len(held['momentum'])} not shaped as the weights")
+    return len(split)
+
+
+def tp_phase(run_dir):
+    """Phase 14: tensor parallelism on the card (2-D family at full width,
+    ranks sharing cuda:0 over gloo): (a) dp 1 × tp 2 against one process,
+    step by step; (b) the ``train`` entry with the DP config and
+    ``model_parallel=2`` at dp 2 × tp 2; (c) the recording ``eval_`` at tp 2
+    against phase 13's one-process recording."""
+    ref_path = os.path.join(WORK, "tp_reference.pt")
+    rows = N_TRAIN + N_VAL
+    record_path = os.path.join(TRAIN_RUNS, "tp_record_ranks")
+    try:
+        one = dp_one_process(ref_path, TP_SETUP)
+        t0 = time.time()
+        ranks = run_ranks(dp_rank, TP, ref_path, dp_record_bindings(run_dir), record_path, TP_SETUP,
+                          timeout=DP_RUN_TIMEOUT)
+        spawn_s = time.time() - t0
+    finally:
+        if os.path.exists(ref_path):
+            os.remove(ref_path)
+
+    # (a) each step: the same decisions and whole states on both ranks, losses
+    # and tensors against the one process; the rows each rank holds
+    report = {"world": [r["world"] for r in ranks], "sharded": [check_held(i, r["held"]) for i, r in enumerate(ranks)]}
+    if report["world"] != [(0, m) for m in range(TP)]:
+        raise AssertionError(f"tp: (data, model) indices {report['world']}")
+    for t, want in enumerate(one):
+        got = [r["steps"][t] for r in ranks]
+        for key in ("curated", "curation_mode", "caring_modality"):
+            if any(g[key] != want[key] for g in got):
+                raise AssertionError(f"tp step {t}: {key} {[g[key] for g in got]}, one process {want[key]}")
+        if len({g["digest"] for g in got}) != 1 or len({g["loss"] for g in got}) != 1:
+            raise AssertionError(f"tp step {t}: the ranks' whole states or losses differ")
+        if not abs(got[0]["loss"] - want["loss"]) <= DP_LOSS_RTOL * abs(want["loss"]):
+            raise AssertionError(f"tp step {t}: loss {got[0]['loss']} vs one process {want['loss']}")
+        if got[0]["beyond"]:
+            raise AssertionError(f"tp step {t}: beyond {STEP_TOL} x the update in {got[0]['beyond'][:5]}")
+        for rank, g in enumerate(got):
+            if (g["fwd_launches"], g["bwd_launches"]) != (3, 3) or g["collectives"] <= 0:
+                raise AssertionError(f"tp step {t} rank {rank}: launches {(g['fwd_launches'], g['bwd_launches'])}, "
+                                     f"want (3, 3); {g['collectives']} collectives")
+    if not one[-1]["curated"]:
+        raise AssertionError("tp: the last step did not curate")
+    rates = [TP_SETUP["batch"] / max(r["steps"][t]["seconds"] for r in ranks) for t in range(DP_STEPS)]
+    report["steps"] = {
+        "l2_diff_over_update": [max(r["steps"][t]["l2_diff_over_update"] for r in ranks) for t in range(DP_STEPS)],
+        "loss_rel_err": [abs(ranks[0]["steps"][t]["loss"] - o["loss"]) / abs(o["loss"]) for t, o in enumerate(one)],
+        "curated": [o["curated"] for o in one],
+        "collectives_per_step": [ranks[0]["steps"][t]["collectives"] for t in range(DP_STEPS)],
+        "collective_bytes_per_step": [ranks[0]["steps"][t]["collective_bytes"] for t in range(DP_STEPS)],
+        "launches_per_rank": [[sum(s[k] for s in r["steps"]) for k in ("fwd_launches", "bwd_launches")]
+                              for r in ranks],
+        "samples_per_s_correctness_only": rates, "spawn_s": spawn_s,
+    }
+    steps = report["steps"]
+    log(f"[tp steps] dp 1 x tp 2 on cuda:0 (gloo) vs one process, f32, TF32 off, cuDNN default algorithms, "
+        f"B={TP_SETUP['batch']}, SGD momentum {TP_SETUP['momentum']}, {DP_STEPS} guided steps each from the one "
+        f"process's start: {report['sharded']} weights split on the ranks (momentum alike); largest ||diff||_2 / "
+        f"||update||_2 a step {steps['l2_diff_over_update']}, loss rel err {steps['loss_rel_err']}, curated "
+        f"{steps['curated']} on both, both ranks' whole states identical, collectives a step "
+        f"{steps['collectives_per_step']}, bytes a step by group {steps['collective_bytes_per_step']}, launches "
+        f"(fwd, bwd) per rank {steps['launches_per_rank']} | correctness only: gloo through the host, two "
+        f"processes sharing one card: {rates} samples/s on {smi_line()}")
+
+    # (c) the recording at tp 2 against phase 13's one-process recording
+    one_record = os.path.join(TRAIN_RUNS, "dp_record_one")
+    recorded = {tag: recorded_maps(tag, path, rows, DP_BATCH)
+                for tag, path in (("dp_record_one", one_record), ("tp_record_ranks", record_path))}
+    order = {}
+    for tag, path in (("one", one_record), ("ranks", record_path)):
+        with open(os.path.join(path, "eval_history_batch", "history.pickle"), "rb") as f:
+            order[tag] = np.concatenate([np.asarray(i) for i in pickle.load(f)["test_indices"]])
+    if not np.array_equal(order["one"], order["ranks"]):
+        raise AssertionError("tp record: the indices are not in the one-process order")
+    rec_batches = -(-rows // DP_BATCH)
+    for rank, r in enumerate(ranks):
+        rec = r["record"]
+        if (rec["fwd_launches"], rec["bwd_launches"]) != (3 * rec_batches, 0) or rec["resident"] != [(True, "cuda:0")]:
+            raise AssertionError(f"tp record rank {rank}: launches {(rec['fwd_launches'], rec['bwd_launches'])}, "
+                                 f"want {(3 * rec_batches, 0)}; splits {rec['resident']}")
+    sq_rtol, sq_atol = TOL[torch.float32]["sq"]
+    report["record_max_abs_err"] = max(
+        check_close(f"tp recorded squeeze mmtm{m + 2} view {v}: tp 2 vs one process", torch.from_numpy(g),
+                    torch.from_numpy(w), sq_rtol, sq_atol)
+        for m, (gm, wm) in enumerate(zip(recorded["tp_record_ranks"], recorded["dp_record_one"]))
+        for v, (g, w) in enumerate(zip(gm, wm)))
+    report["record_launches_per_rank"] = [r["record"]["fwd_launches"] for r in ranks]
+    report["record_ranks"] = eval_rate("tp_record_ranks", record_path, rows, report["record_launches_per_rank"][0],
+                                       spawn_s)
+    log(f"[tp record] {rows} samples at tp 2 vs phase 13's one process, B={DP_BATCH}: each index once, in the one "
+        f"process's order; squeeze maps max |diff| {report['record_max_abs_err']:.3e} (sq tolerance); forward "
+        f"launches per rank {report['record_launches_per_rank']}")
+
+    # (b) the DP config's train entry at dp 2 × tp 2
+    save_path = os.path.join(TRAIN_RUNS, "tp_grid")
+    bindings = DP_BINDINGS + ["train.device='cuda:0'", f"training_loop.model_parallel={TP}"]
+    t0 = time.time()
+    grid = run_ranks(tp_train_rank, TP_GRID, bindings, save_path, timeout=DP_RUN_TIMEOUT)
+    grid_s = time.time() - t0
+    world1 = os.path.join(TRAIN_RUNS, "dp_world1")
+    with open(os.path.join(world1, "history.csv")) as f:
+        want_columns = next(csv.reader(f))
+    with open(os.path.join(save_path, "history.csv")) as f:
+        history = list(csv.DictReader(f))
+    if list(history[0]) != want_columns or [int(r["epoch"]) for r in history] != [1, 2]:
+        raise AssertionError(f"tp grid: history columns {list(history[0])} epochs {[r['epoch'] for r in history]}, "
+                             f"want phase 13's {want_columns} and [1, 2]")
+    for r in history:
+        losses = [float(r[k]) for k in ("loss", "val_loss", "test_loss")]
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"tp grid: epoch {r['epoch']} losses {losses}")
+    if len({g["digest"] for g in grid}) != 1:
+        raise AssertionError(f"tp grid: the ranks' whole states differ after the train entry: "
+                             f"{[g['digest'][:12] for g in grid]}")
+    grid_steps = grid[0]["steps"]
+    want = (3 * (grid_steps + 2 * (-(-N_VAL // DP_BATCH) + -(-N_TRAIN_TEST // DP_BATCH))), 3 * grid_steps)
+    for rank, g in enumerate(grid):
+        if ((g["fwd_launches"], g["bwd_launches"]) != want or g["steps"] != 2 * (N_TRAIN // DP_BATCH)
+                or g["world"] != (TP_GRID, TP, rank // TP, rank % TP) or g["sharded"] != TP_SHARDED
+                or g["dtype"] != str(torch.bfloat16) or g["resident"] != [(True, "cuda:0")] * 3):
+            raise AssertionError(f"tp grid rank {rank}: {g}, want launches {want}")
+    ckpt = os.path.join(save_path, "model_last_epoch.pt")
+    got_state = torch.load(ckpt, map_location="cpu", weights_only=True)["model"]
+    want_state = torch.load(os.path.join(world1, "model_last_epoch.pt"), map_location="cpu", weights_only=True)["model"]
+    if {k: v.shape for k, v in got_state.items()} != {k: v.shape for k, v in want_state.items()}:
+        raise AssertionError("tp grid: the checkpoint's names or shapes are not a world-1 run's")
+    model = MMTMMVCNN(nclasses=40)
+    load_weights(model, ckpt)
+    loaded = model.state_dict()
+    if any(not torch.equal(loaded[k], v) for k, v in got_state.items()):
+        raise AssertionError("tp grid: the one-process port does not load the checkpoint as written")
+    load_training_state(model, make_optimizer(model.parameters(), lr=DP_LR), ckpt)
+    report["grid"] = {
+        "train_samples_per_s_correctness_only": [float(r["train_samples_per_sec"]) for r in history],
+        "launches_per_rank": [[g["fwd_launches"], g["bwd_launches"]] for g in grid], "spawn_s": grid_s,
+        "losses": [float(r["loss"]) for r in history],
+    }
+    log(f"[tp grid] train entry, {DP_CONFIGS[1]} + model_parallel={TP} at dp 2 x tp 2 (4 gloo ranks on cuda:0, "
+        f"bf16, B={DP_BATCH}, lr {DP_LR}): epochs [1, 2], the JAX columns, {TP_SHARDED} weights split on each rank, "
+        f"every rank's whole state (model, momentum, controller) bit-identical after the entry; "
+        f"the checkpoint whole ({len(got_state)} entries, world 1's names and shapes), loaded by the one-process "
+        f"port | launches (fwd, bwd) per rank {report['grid']['launches_per_rank']} (want {want}) | correctness "
+        f"only: train samples/s {report['grid']['train_samples_per_s_correctness_only']}, {grid_s:.1f}s for the "
+        f"four ranks, on {smi_line()}")
+    return report
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs an NVIDIA GPU", file=sys.stderr)
@@ -2284,6 +2552,8 @@ def main() -> int:
         log("[side] " + json.dumps(side))
         dp = phase("13 data parallel", dp_phase, os.path.join(TRAIN_RUNS, "f32"))
         log("[dp] " + json.dumps(dp))
+        tp = phase("14 tensor parallel", tp_phase, os.path.join(TRAIN_RUNS, "f32"))
+        log("[tp] " + json.dumps(tp))
     finally:
         shutil.rmtree(TRAIN_DATA, ignore_errors=True)
         shutil.rmtree(TRAIN_RUNS, ignore_errors=True)
@@ -2322,6 +2592,16 @@ def main() -> int:
                if direction == "fwd" else {}),
         } for i, direction in enumerate(("fwd", "bwd"))
     }
+    # phase 14: each tp 2 rank's three guided steps and its recording pass,
+    # and each dp 2 x tp 2 rank's train entry
+    tp_launches = {
+        direction: {
+            **{f"launches_tp_step_rank{r}": n[i] for r, n in enumerate(tp["steps"]["launches_per_rank"])},
+            **{f"launches_tp_grid_rank{r}": n[i] for r, n in enumerate(tp["grid"]["launches_per_rank"])},
+            **({f"launches_tp_record_rank{r}": n for r, n in enumerate(tp["record_launches_per_rank"])}
+               if direction == "fwd" else {}),
+        } for i, direction in enumerate(("fwd", "bwd"))
+    }
 
     def bound_by(report):
         return "bytes" if all(s["bound_by"] == "bytes" for s in report["sites"].values()) else "operations"
@@ -2352,6 +2632,7 @@ def main() -> int:
         **launches_3d["fwd"],
         **side_launches["fwd"],
         **dp_launches["fwd"],
+        **tp_launches["fwd"],
         "max_abs_err": f32["max_abs_err"],
         "max_abs_err_bf16": bf16["max_abs_err"],
         # float32, the configuration's dtype: one forward's three fusion sites at B=128
@@ -2378,6 +2659,7 @@ def main() -> int:
         **launches_3d["bwd"],
         **side_launches["bwd"],
         **dp_launches["bwd"],
+        **tp_launches["bwd"],
         "max_abs_err": bf32["max_abs_err"],
         "max_abs_err_bf16": bbf16["max_abs_err"],
         # float32: one step's three fusion sites at B=128

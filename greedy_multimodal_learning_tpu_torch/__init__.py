@@ -25,8 +25,9 @@ K checkpoints in one pass (``eval_sweep``); the model options ``SEonly``,
 entry runs (``run_api.run_entry``) and a traced train epoch
 (``Trainer.enable_profiling``); data parallelism over ``torch.distributed``
 ranks, one process a card (``parallel/``, ``training_loop.data_parallel``,
-``evalution_loop.data_parallel``).  ``model_parallel`` other than 1 and
-``orbax_dir`` are not ported and raise.
+``evalution_loop.data_parallel``), with tensor parallelism over model
+groups beside it (``model_parallel``, ``parallel/tensor.py``).
+``orbax_dir`` is not ported and raises.
 """
 
 __version__ = "0.1.0"

@@ -8,7 +8,8 @@ them on the host.  When those means are all a run needs,
 row weighted by how often its sample index occurs in the selected set, and
 only the (C,) means cross to the host, written by ``evalution_loop`` as
 ``eval_history_batch/rescale_means.pkl``.  Under data parallelism each rank
-sums its rows and the sums are added over the world before the division.
+sums its rows and the sums are added over the data group before the
+division (the ranks of a model group hold the same rows).
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ class RescaleMeanAccumulator:
     ``get_rescale_weights`` selects them (the training run's
     ``train_indices`` or ``val_indices``).  An index selected twice counts
     twice, as ``maps[selected].mean(0)`` counts it (``ondevice_rescale.py:55-60``).
-    With a ``world``, :meth:`means` sums every rank's sums first."""
+    With a ``world``, :meth:`means` sums the data group's sums first."""
 
     def __init__(self, selected_indices, device, world=None):
         self.world = world
@@ -71,7 +72,7 @@ class RescaleMeanAccumulator:
             raise RuntimeError("no squeeze maps were consumed: did the pass record them (saving_mmtm_squeeze_array)?")
         flat = torch.cat([s for sums in self.sums for s in sums] + [self.count[None]])
         if self.world is not None:
-            flat = parallel.all_reduce_(flat)
+            flat = parallel.all_reduce_(flat, self.world.data_group)
         flat = flat.cpu().numpy()
         count = float(flat[-1])
         if count != len(self.selected):

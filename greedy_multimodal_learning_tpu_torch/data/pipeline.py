@@ -287,7 +287,8 @@ class DeviceCachePipeline(BatchPipeline):
 
 def adopt_world(pipelines, world) -> None:
     """Give each pipeline this rank's rows of every batch of ``world``
-    (:meth:`~..parallel.World.rows`); a batch size the node's ranks do not
+    (:meth:`~..parallel.World.rows`: its data index's, the same on every
+    rank of a model group); a batch size the node's data indices do not
     divide raises ValueError.  Each rank uploads its node's corpus to its
     own device and gathers its rows there, as the JAX package replicates the
     corpus over the mesh and gathers batches already sharded

@@ -13,7 +13,9 @@ flax paths do (``net_view_i``, ``mmtm``, the modality names):
 
 Tensors with the same membership pattern are flattened together and reduced
 in one sum, so a step makes one reduction per pattern (at most six), not one
-per parameter.
+per parameter.  Under tensor parallelism the sharded weights' sums are
+taken apart (:meth:`GroupReducer.split`) and added over the model group, so
+each whole tensor counts once.
 """
 
 from __future__ import annotations
@@ -63,8 +65,19 @@ class GroupReducer:
         self.patterns = [(torch.tensor(vec, dtype=torch.float32), idx) for vec, idx in patterns.items()]
 
     def __call__(self, tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-        total = torch.zeros(self.width, device=tensors[0].device)
+        return self.split(tensors, [False] * len(tensors))[0]
+
+    def split(self, tensors: Sequence[torch.Tensor], sharded: Sequence[bool]) -> tuple:
+        """(the sums of the tensors ``sharded`` does not mark, the sums of
+        the marked ones), each (2N,): under tensor parallelism a rank holds
+        its rows of the marked tensors, whose sums the caller adds over the
+        model group, while every rank of the group holds the others whole."""
+        device = tensors[0].device
+        totals = [torch.zeros(self.width, device=device), torch.zeros(self.width, device=device)]
         for vec, idx in self.patterns:
-            flat = torch.cat([tensors[i].reshape(-1) for i in idx]).float()
-            total = total + vec.to(flat.device) * (flat * flat).sum()
-        return total
+            for part, total in enumerate(totals):
+                mine = [tensors[i].reshape(-1) for i in idx if bool(sharded[i]) == bool(part)]
+                if mine:
+                    flat = torch.cat(mine).float()
+                    totals[part] = totals[part] + vec.to(device) * (flat * flat).sum()
+        return tuple(totals)

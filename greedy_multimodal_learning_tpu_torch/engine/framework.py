@@ -26,12 +26,16 @@ traces the next train epoch with ``torch.profiler``
 
 A trainer built with a ``world`` (:class:`~..parallel.World`) is one rank
 of a data-parallel run, the counterpart of the JAX trainer's ``mesh``
-(``framework.py:85-98``): each batch holds its rows of the node batch
-(:func:`~..data.pipeline.adopt_world`), its steps reduce over the world
-(:mod:`..parallel.mesh`), the flips are the rows of the global batch's
-draw, the epoch metrics are weighted by the global batch sizes, the
-recordings and indices are gathered in global-batch order, and rank 0
-alone writes checkpoints.  The model's state starts as rank 0's.
+(``framework.py:85-98``): each batch holds its data index's rows of the
+node batch (:func:`~..data.pipeline.adopt_world`), its steps reduce over
+the data group (:mod:`..parallel.mesh`), the flips are the data index's
+rows of the global batch's draw, the epoch metrics are weighted by the
+global batch sizes, the recordings and indices are gathered in
+global-batch order, and rank 0 alone writes checkpoints.  The model's
+state starts as rank 0's.  With ``world.model_size`` > 1 each rank then
+keeps its rows of the weights the JAX rule selects
+(``model_parallel_min_dim``, :mod:`..parallel.tensor`); checkpoints, loads
+and BatchNorm folding see them whole.
 
 Not ported: the scanned eval (it served the TPU's remote link).
 """
@@ -51,6 +55,7 @@ import torch
 from . import checkpoint as ckpt
 from ..data.transforms import draw_flips, flip_shape, preprocess
 from ..parallel import mesh as parallel
+from ..parallel import tensor as tensor_parallel
 from ..parallel.multihost import is_main_process
 from .bdr import GroupReducer
 from .callbacks import CallbackList, ProgressionCallback, ValidationProgressionCallback
@@ -166,9 +171,11 @@ class Trainer:
         mmtm_off: bool = False,
         fold_bn_eval: bool = False,
         world: Optional[parallel.World] = None,
+        model_parallel_min_dim: int = 256,
     ):
         self.model = model
         self.world = world
+        self.model_parallel_min_dim = int(model_parallel_min_dim)
         self.optimizer = optimizer
         self.nummodalities = nummodalities
         self.device = torch.device(device)
@@ -250,16 +257,39 @@ class Trainer:
         set_learning_rate(self.optimizer, lr)
 
     def save_weights(self, filepath):
-        """The checkpoint and its sidecar; under data parallelism rank 0
-        writes them and every rank waits until it has."""
-        if is_main_process():
-            ckpt.save_weights(self.model, filepath, optimizer=self.optimizer, controller=self.ctrl.as_dict(),
-                              step=self.step)
+        """The checkpoint and its sidecar, the weights and momentum whole;
+        under data parallelism rank 0 writes them and every rank waits until
+        it has."""
+        with tensor_parallel.unsharded(self.model, self.optimizer):
+            if is_main_process():
+                ckpt.save_weights(self.model, filepath, optimizer=self.optimizer, controller=self.ctrl.as_dict(),
+                                  step=self.step)
         if self.world is not None:
             parallel.barrier(self.device)
 
     def load_weights(self, filepath):
-        ckpt.load_weights(self.model, filepath)
+        """A checkpoint of whole weights; a sharded model keeps its rows."""
+        with tensor_parallel.unsharded(self.model):
+            ckpt.load_weights(self.model, filepath)
+
+    def distribute(self):
+        """Under data parallelism every rank takes rank 0's state, then
+        under tensor parallelism keeps its rows of the selected weights and
+        their momentum (:meth:`_take_shards`).  A model that holds its rows
+        already is left as it is."""
+        if self.world is None or tensor_parallel.is_sharded(self.model):
+            return
+        parallel.broadcast_module_(self.model)
+        self._take_shards()
+
+    def _take_shards(self):
+        """Under tensor parallelism, this rank's rows of the selected weights
+        and their momentum (once)."""
+        if self.world is not None and not tensor_parallel.is_sharded(self.model):
+            names = tensor_parallel.shard_module_(self.model, self.world, self.model_parallel_min_dim, self.optimizer)
+            if names:
+                logger.info("tensor parallelism: %d weights split %d ways (model index %d)", len(names),
+                            self.world.model_size, self.world.model_index)
 
     def restore(self, filepath):
         """Resume from ``filepath`` and its sidecar, the port's ``.torch.pt``
@@ -268,7 +298,8 @@ class Trainer:
         statistics, MMTM buffers, optimizer state, controller state and
         step; the next train-begin controller reset is skipped
         (``framework.py:174-179``)."""
-        state = ckpt.load_training_state(self.model, self.optimizer, filepath)
+        with tensor_parallel.unsharded(self.model, self.optimizer):
+            state = ckpt.load_training_state(self.model, self.optimizer, filepath)
         self.ctrl = ControllerState(**{k: v.to(self.device) for k, v in state["controller"].items()})
         self.step = int(state["step"])
         self._skip_next_controller_reset = True
@@ -291,13 +322,14 @@ class Trainer:
         stacks, (B,) for clips: :func:`~..data.transforms.flip_shape`), a
         function of (seed, step) drawn on the device.  Under data
         parallelism ``shape`` is the rank's block: the global batch's flips
-        are drawn and the rank takes its rows."""
+        are drawn and the rank takes its data index's rows, as the ranks of
+        its model group do."""
         self._flip_gen.manual_seed(self._seed * 1_000_003 + self.step)
         if self.world is None:
             return draw_flips(shape, self._flip_gen)
-        b = shape[0]
-        flips = draw_flips((b * self.world.size,) + tuple(shape[1:]), self._flip_gen)
-        return flips[self.world.rank * b:(self.world.rank + 1) * b]
+        b, d = shape[0], self.world.data_index
+        flips = draw_flips((b * self.world.data_size,) + tuple(shape[1:]), self._flip_gen)
+        return flips[d * b:(d + 1) * b]
 
     def train_batch(self, data, flips, unlock) -> dict:
         """One train step on a batch of device tensors with its
@@ -324,13 +356,13 @@ class Trainer:
         global-batch order (the ranks' blocks joined) and trimmed to the
         real rows, from ``blocks`` (each batch's rows of ``indices``) and
         ``recorded`` (each batch's {key: [MMTM][view] (b, C)} tensors); one
-        gather each.  Returns ([batch] indices, {key: [batch][MMTM][view]
-        numpy (size, C)})."""
+        gather each over the data group.  Returns ([batch] indices,
+        {key: [batch][MMTM][view] numpy (size, C)})."""
         if not blocks:
             return [], {}
         world = self.world
         local = torch.from_numpy(np.stack(blocks).astype(np.int64)).to(self.device)
-        joined = parallel.gather(local, world).cpu().numpy()  # (ranks, batches, b)
+        joined = parallel.gather(local, world).cpu().numpy()  # (data indices, batches, b)
         per_batch = [joined[:, k].reshape(-1) for k in range(len(blocks))]
         valid = [idx != -1 for idx in per_batch]
         indices = [idx[v].astype(blocks[0].dtype) for idx, v in zip(per_batch, valid)]
@@ -338,7 +370,7 @@ class Trainer:
             return indices, {}
         keys = list(recorded[0])
         leaves = [t.reshape(-1) for rec in recorded for k in keys for m in rec[k] for t in m]
-        flat = parallel.gather(torch.cat(leaves), world).cpu().numpy()  # (ranks, leaf floats)
+        flat = parallel.gather(torch.cat(leaves), world).cpu().numpy()  # (data indices, leaf floats)
         out, offset = {k: [] for k in keys}, 0
         for rec, v in zip(recorded, valid):
             for k in keys:
@@ -432,9 +464,11 @@ class Trainer:
         model's own and take the pass's updates)."""
         if not self.fold_bn_eval:
             return self.model
-        state = self.model.state_dict()
-        folded = fold_batchnorm(state)
-        return _FoldedModel(self.model, {k: v for k, v in folded.items() if v is not state[k]})
+        with tensor_parallel.unsharded(self.model):  # folded whole, then this rank's rows
+            state = self.model.state_dict()
+            folded = fold_batchnorm(state)
+            changed = tensor_parallel.slice_state(self.model, {k: v for k, v in folded.items() if v is not state[k]})
+        return _FoldedModel(self.model, changed)
 
     def _eval_generator(self, generator, phase, *, steps=None, callback_list=None):
         """One validation or test pass with BatchNorm on its running
@@ -522,8 +556,7 @@ class Trainer:
         callback_list.set_params({"epochs": epochs, "steps": steps_per_epoch})
 
         self.stop_training = False
-        if self.world is not None:
-            parallel.broadcast_module_(self.model)  # every rank starts from rank 0's state
+        self.distribute()  # every rank starts from rank 0's state
         callback_list.on_train_begin({})
         for epoch in range(initial_epoch, epochs + 1):
             callback_list.on_epoch_begin(epoch, {})
@@ -554,6 +587,7 @@ class Trainer:
         (``framework.py:679-694``), each ending in ``on_epoch_end``."""
         callback_list = CallbackList(list(callbacks))
         callback_list.set_model_pytoune(self)
+        self._take_shards()
         callback_list.on_train_begin({})
         for epoch in range(epochs + 1):
             epoch_begin_time = timeit.default_timer()

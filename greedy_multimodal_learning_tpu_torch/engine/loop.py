@@ -25,8 +25,12 @@ over its devices (``loop.py:172-183,324-335``): each pipeline takes the
 rank's rows of every batch (:func:`~..data.pipeline.adopt_world`), the
 trainer reduces over the world, and rank 0 alone removes the stale files
 (then every rank waits), writes the history and the checkpoints; every rank
-reads them on ``resume``.  ``model_parallel`` other than 1 and
-``orbax_dir`` are not ported and raise.
+reads them on ``resume``.  ``model_parallel`` > 1 splits the wide weights
+over model groups of that many ranks beside the data groups
+(:mod:`..parallel.tensor`); without ``data_parallel`` it is ignored, as
+the JAX package builds its mesh only under ``data_parallel``
+(``loop.py:174-179,326-331``).  ``orbax_dir`` (Orbax snapshots) is not
+ported and raises: the checkpoint's sidecar holds the whole training state.
 """
 
 from __future__ import annotations
@@ -60,20 +64,18 @@ def _remove_stale(paths):
             pass
 
 
-def _raise_unported(**options):
-    for name, value in options.items():
-        if value:
-            raise NotImplementedError(f"{name} is not ported yet (see ROADMAP.md)")
-
-
 @contextlib.contextmanager
-def _data_parallel_world(enabled, device):
-    """The :class:`~..parallel.World` the loop runs over when ``enabled``
-    (None otherwise); a group made for it is destroyed on the way out."""
+def _data_parallel_world(enabled, device, model_parallel):
+    """The :class:`~..parallel.World` the loop runs over when ``enabled``,
+    ``model_parallel`` ranks a model group (None otherwise, whatever
+    ``model_parallel`` says); a group made for it is destroyed on the way
+    out."""
     if not enabled:
+        if int(model_parallel) != 1:
+            logger.info("model_parallel=%s is ignored without data_parallel, as in the JAX package", model_parallel)
         yield None
         return
-    world, made = parallel.join_world(device)
+    world, made = parallel.join_world(device, int(model_parallel))
     try:
         yield world
     finally:
@@ -187,10 +189,13 @@ def training_loop(
     the gin surface and ignored.  ``resume`` continues from
     ``model_last_epoch.pt`` when it and ``history.csv`` exist, and starts
     fresh otherwise."""
-    _raise_unported(**{
-        "training_loop.orbax_dir": orbax_dir, "training_loop.model_parallel": model_parallel != 1,
-    })
-    with _data_parallel_world(data_parallel, device) as world:
+    if orbax_dir:
+        raise NotImplementedError(
+            "training_loop.orbax_dir writes Orbax, a JAX library's format, and is not ported: the port's "
+            "model_last_epoch.pt with its .torch.pt sidecar holds the whole training state "
+            "(training_loop.checkpoint_every spaces it; see ROADMAP.md)"
+        )
+    with _data_parallel_world(data_parallel, device, model_parallel) as world:
         callbacks = list(custom_callbacks)
         os.makedirs(save_path, exist_ok=True)
 
@@ -305,8 +310,7 @@ def evalution_loop(  # [sic] the reference's name, kept for the gin surface
     training run's train (or val) indices on the device and writes them as
     ``eval_history_batch/rescale_means.pkl`` (``loop.py:350-373,401-428``).
     Returns the :class:`Trainer`."""
-    _raise_unported(**{"evalution_loop.model_parallel": model_parallel != 1})
-    with _data_parallel_world(data_parallel, device) as world:
+    with _data_parallel_world(data_parallel, device, model_parallel) as world:
         trainer = Trainer(
             model,
             nummodalities=nummodalities,

@@ -5,8 +5,9 @@
   blend accuracy, on one view's logits ``acc_modal_i``.
 
 Every mean is mask-weighted over the real rows of a padded batch.  Under
-data parallelism each rank's mean is its masked sum over the world's valid
-count (:func:`valid_count`), so the ranks' means sum to the joined batch's.
+data parallelism each rank's mean is its masked sum over the data group's
+valid count (:func:`valid_count`), so the data group's means sum to the
+joined batch's.
 """
 
 from __future__ import annotations
@@ -17,12 +18,13 @@ from ..parallel import mesh as parallel
 
 
 def valid_count(mask):
-    """The valid rows of the batch, of the whole world's under data
+    """The valid rows of the batch, of the whole data group's under data
     parallelism, at least 1.  The clamp comes after the sum: a rank whose
     rows are all padding still divides by the world's count."""
     count = mask.float().sum()
-    if parallel.active() is not None:
-        count = parallel.all_reduce_(count.clone())
+    world = parallel.active()
+    if world is not None:
+        count = parallel.all_reduce_(count.clone(), world.data_group)
     return count.clamp(min=1.0)
 
 

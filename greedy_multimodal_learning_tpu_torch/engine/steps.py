@@ -23,11 +23,15 @@ here they stay separate tensors, fetched once a pass by the trainer.
 
 Under data parallelism (:func:`~..parallel.data_parallel`, entered by the
 trainer) each rank runs the step on its rows of the global batch: the loss
-divides its masked sums by the world's valid count, the gradients are
-summed over the world right after the backward, before the BDR sums, so
-the BDR norms, SGD and the controller see the global gradient and stay
+divides its masked sums by the data group's valid count, the gradients are
+summed over the data group right after the backward, before the BDR sums,
+so the BDR norms, SGD and the controller see the global gradient and stay
 identical on every rank, and the loss and accuracies are summed over the
-world into the joined batch's.
+data group into the joined batch's.  Under tensor parallelism a rank holds
+its rows of the wide weights and their gradients, which are summed over the
+data group, the replicated ones then broadcast from the model group's
+first rank, so the copies of a model group stay equal; the BDR sums add the
+rows over the model group.
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ import torch
 
 from ..data.transforms import preprocess
 from ..parallel import mesh as parallel
+from ..parallel import tensor as tensor_parallel
 from .bdr import GroupReducer
 from .controller import (
     ControllerState,
@@ -79,12 +84,29 @@ def _world_count(mask):
     return valid_count(mask) if parallel.active() is not None else None
 
 
+def _bdr_sums(model, reducer, params, world):
+    """The BDR sums of the gradients and of the weights.  Under tensor
+    parallelism a sharded tensor's sum is its rows', so those are added over
+    the model group (both in one collective) and each replicated tensor
+    counts once."""
+    grads = [p.grad for p in params]
+    shards = tensor_parallel.sharded_weights(model) if world is not None and world.model_size > 1 else {}
+    if not shards:
+        return reducer(grads), reducer(params)
+    sharded = [p in shards for p in params]
+    (g_whole, g_rows), (w_whole, w_rows) = reducer.split(grads, sharded), reducer.split(params, sharded)
+    rows = parallel.all_reduce_(torch.stack([g_rows, w_rows]), world.model_group)
+    return g_whole + rows[0], w_whole + rows[1]
+
+
 def _step_outputs(logits, labels, mask, loss, count):
     blend_acc, per_view_acc = blend_and_per_view_acc(logits, labels, mask, count)
     out = {"loss": loss.detach(), "acc": blend_acc, "acc_modal": per_view_acc}
-    if parallel.active() is not None:
-        # the ranks' shares of the joined batch's means, summed in one collective
-        total = parallel.all_reduce_(torch.cat([out["loss"].reshape(1), blend_acc.reshape(1), per_view_acc]))
+    world = parallel.active()
+    if world is not None:
+        # the data group's shares of the joined batch's means, summed in one collective
+        total = parallel.all_reduce_(torch.cat([out["loss"].reshape(1), blend_acc.reshape(1), per_view_acc]),
+                                     world.data_group)
         out = {"loss": total[0], "acc": total[1], "acc_modal": total[2:]}
     return out
 
@@ -125,11 +147,11 @@ def train_step(
     params = [p for group in optimizer.param_groups for p in group["params"]]
     optimizer.zero_grad(set_to_none=True)
     loss.backward()
-    if parallel.active() is not None:
-        parallel.all_reduce_grads_(params)
+    world = parallel.active()
+    if world is not None:
+        tensor_parallel.all_reduce_grads_(model, params, world)
     with torch.no_grad():
-        gn = reducer([p.grad for p in params])
-        wn = reducer(params)
+        gn, wn = _bdr_sums(model, reducer, params, world)
     optimizer.step()
     new_ctrl = controller_update(ctrl, gn, wn, unlock)
 

@@ -15,10 +15,12 @@ so they take one update a forward, as with flax.
 
 Under data parallelism (:func:`~..parallel.data_parallel`) the train-mode
 statistics are the world's: the sums and the valid count, then the centred
-sums of squares, each summed over the ranks through a differentiable
+sums of squares, each summed over the data group through a differentiable
 all-reduce, so the backward sums the ranks' upstream gradients as
 ``SyncBatchNorm``'s does and every rank's running statistics take the global
-mean, variance and count.
+mean, variance and count.  Under tensor parallelism a convolution or linear
+whose weight :func:`~..parallel.tensor.shard_module_` split runs
+column-parallel over the model group (:mod:`..parallel.tensor`).
 """
 
 from __future__ import annotations
@@ -33,22 +35,28 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..parallel import mesh as parallel
+from ..parallel import tensor as tensor_parallel
 
 
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` (no bias) whose float32 weight is cast to the input's
-    dtype at use."""
+    dtype at use; column-parallel once its weight is sharded (``shard``)."""
+
+    shard = None
 
     def forward(self, x):
-        return self._conv_forward(x, self.weight.to(x.dtype), None)
+        w = self.weight.to(x.dtype)
+        if self.shard is None:
+            return self._conv_forward(x, w, None)
+        return tensor_parallel.column_parallel(lambda t: self._conv_forward(t, w, None), x, self.shard, 1)
 
 
 class Conv3d(nn.Conv3d):
     """``nn.Conv3d`` (no bias) whose float32 weight is cast to the input's
-    dtype at use."""
+    dtype at use; column-parallel once its weight is sharded (``shard``)."""
 
-    def forward(self, x):
-        return self._conv_forward(x, self.weight.to(x.dtype), None)
+    shard = None
+    forward = Conv2d.forward
 
 
 def conv3x3(cin, cout, stride=1):
@@ -61,10 +69,19 @@ def conv1x1(cin, cout, stride=1):
 
 class Linear(nn.Linear):
     """``TorchLinear`` (``layers.py:50-62``): the input, weight and bias are
-    cast to the compute dtype and the bias is added in that dtype."""
+    cast to the compute dtype and the bias is added in that dtype;
+    column-parallel once its weight is sharded (``shard``), the whole bias
+    added after the join."""
+
+    shard = None
 
     def forward(self, x):
-        return F.linear(x, self.weight.to(x.dtype)) + self.bias.to(x.dtype)
+        w = self.weight.to(x.dtype)
+        if self.shard is None:
+            y = F.linear(x, w)
+        else:
+            y = tensor_parallel.column_parallel(lambda t: F.linear(t, w), x, self.shard, -1)
+        return y + self.bias.to(x.dtype)
 
 
 # Set on the thread that recomputes a checkpointed block (the autograd
@@ -108,7 +125,7 @@ class _MaskedBatchNorm:
       takes the unbiased one ``var * n / max(n - 1, 1)``.  ``F.batch_norm``
       cannot mask, so this is plain torch ops.  A :func:`rematerialize` recompute
       does not update the running statistics a second time.  Under data
-      parallelism both passes' sums, and the count, are the world's."""
+      parallelism both passes' sums, and the count, are the data group's."""
 
     def forward(self, x, train: bool = False, mask=None):
         if not train:
@@ -120,15 +137,16 @@ class _MaskedBatchNorm:
         m = m.view((-1,) + (1,) * (x.dim() - 1))
         n = m.sum() * math.prod(x.shape[2:])
         total = (xf * m).sum(dim=dims)
-        reduce = parallel.active() is not None
-        if reduce:
-            total, n = parallel.differentiable_sum(torch.cat([total, n[None]])).split([total.numel(), 1])
+        world = parallel.active()
+        if world is not None:
+            total, n = parallel.differentiable_sum(torch.cat([total, n[None]]), world.data_group).split(
+                [total.numel(), 1])
             n = n[0].detach()  # a count: no gradient
         mean = total / n
         centered = xf - mean.view(per_channel)
         squares = (centered.square() * m).sum(dim=dims)
-        if reduce:
-            squares = parallel.differentiable_sum(squares)
+        if world is not None:
+            squares = parallel.differentiable_sum(squares, world.data_group)
         var = squares / n
         if not getattr(_RECOMPUTE, "active", False):
             self._update_running(mean, var, n)

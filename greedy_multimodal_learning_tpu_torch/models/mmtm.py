@@ -6,7 +6,7 @@
 3. per-modality gates: sigmoid(fc_<name>(excitation)),
 4. running-average gate buffers updated on every forward, eval included,
    with a step counter, from the gate means over the valid rows (over the
-   world's rows under data parallelism, on every branch); ``bug_compat``
+   data group's rows under data parallelism, on every branch); ``bug_compat``
    replicates the reference's update of every running average from the
    first modality's gate (2 modalities only),
 5. curation: the cared-for modality's gate is replaced by the post-update
@@ -20,7 +20,11 @@ the eager path (``mmtm.py:212-217``), where ``fc_*`` add their bias in the
 compute dtype, and the fused kernel path (``mmtm.py:168-211``,
 ``use_pallas``), where :class:`~..ops.mmtm_gating.MMTMGatingFunction` adds
 it in float32 and differentiates with the fused backward.  On CUDA tensors
-``use_pallas=True`` means the CUDA kernels, forward and backward.
+``use_pallas=True`` means the CUDA kernels, forward and backward.  Under
+tensor parallelism the kernel takes its weights whole, joined over the model
+group (:func:`~..parallel.tensor.full_weight`), as XLA hands the JAX
+package's kernel whole operands; the eager paths run the ``fc_*`` linears
+column-parallel.
 
 The flow-off branch takes precedence over the kernel branch, as in the JAX
 package: it runs no kernel.  Two variants (``mmtm.py:74-102,138-143``):
@@ -41,6 +45,7 @@ from torch import nn
 from .. import config as cfg
 from ..ops.mmtm_gating import MMTMGatingFunction
 from ..parallel import mesh as parallel
+from ..parallel.tensor import full_weight
 from .layers import Linear
 
 
@@ -158,9 +163,9 @@ class MMTM(nn.Module):
             e0, e1 = self._excite(0), self._excite(1)
             out0, out1, s0, s1, g0, g1 = MMTMGatingFunction.apply(
                 f0, f1,
-                cast(self.fc_squeeze.weight), cast(self.fc_squeeze.bias),
-                cast(e0.weight), cast(e0.bias),
-                cast(e1.weight), cast(e1.bias),
+                cast(full_weight(self.fc_squeeze)), cast(self.fc_squeeze.bias),
+                cast(full_weight(e0)), cast(e0.bias),
+                cast(full_weight(e1)), cast(e1.bias),
             )
             squeezes, gates = [s0, s1], [g0, g1]
             pre_scaled = [
@@ -194,9 +199,10 @@ class MMTM(nn.Module):
         with torch.no_grad():
             step = self.step
             sums, count = [(g * mask[:, None]).sum(dim=0) for g in gates], mask.sum()
-            if parallel.active() is not None:
-                # the world's gate sums and valid rows, in one collective
-                *sums, count = parallel.all_reduce_(torch.cat(sums + [count[None]])).split(
+            world = parallel.active()
+            if world is not None:
+                # the data group's gate sums and valid rows, in one collective
+                *sums, count = parallel.all_reduce_(torch.cat(sums + [count[None]]), world.data_group).split(
                     [s.numel() for s in sums] + [1])
                 count = count[0]
             denom = count.clamp(min=1.0)

@@ -1,15 +1,16 @@
-"""Data parallelism over ``torch.distributed`` ranks
+"""Data and tensor parallelism over ``torch.distributed`` ranks
 (``greedy_multimodal_learning_tpu/parallel``): see :mod:`.mesh` for what a
-rank computes and :mod:`.multihost` for processes, nodes and devices."""
+rank computes, :mod:`.tensor` for the weights split over a model group and
+:mod:`.multihost` for processes, nodes and devices."""
 
 from .mesh import (
     World,
     active,
     all_reduce_,
-    all_reduce_grads_,
     barrier,
     broadcast_,
     broadcast_module_,
+    collective_bytes,
     collective_count,
     data_parallel,
     differentiable_sum,

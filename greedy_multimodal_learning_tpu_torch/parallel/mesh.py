@@ -1,40 +1,52 @@
-"""Data parallelism over ``torch.distributed`` ranks: the port's counterpart
-of the JAX package's ``('data', 'model')`` mesh with ``model_parallel=1``
+"""Data and tensor parallelism over ``torch.distributed`` ranks: the port's
+counterpart of the JAX package's ``('data', 'model')`` mesh
 (``greedy_multimodal_learning_tpu/parallel/mesh.py``).
 
-The JAX package shards the batch ``P('data')`` over the mesh's devices and
-replicates the state; as its step is one program with global-view
-semantics, every masked statistic is a reduction over the whole batch.  The
-port runs one process a device (a rank) and makes each of those reductions
-an explicit collective over the world, so a rank's step computes what the
-one-process step computes on the joined batch:
+The JAX package shards the batch ``P('data')`` over the mesh's data axis,
+the wide kernels over its model axis (``model_parallel``) and replicates the
+rest; as its step is one program with global-view semantics, every masked
+statistic is a reduction over the whole batch.  The port runs one process a
+device (a rank) on a grid of ``size / model_size`` data indices by
+``model_size`` model indices, as ``make_mesh`` reshapes its devices: rank
+``r`` has data index ``r // model_size`` and model index
+``r % model_size``.  The ``model_size`` consecutive ranks of one data index
+form its model group and hold the same rows; the ranks of one model index
+form its data group.  Each statistic becomes an explicit collective over the
+data group, so a rank's step computes what the one-process step computes on
+the joined batch:
 
 * a rank is a device of the mesh, a node (``torchrun``'s group of
-  ``LOCAL_WORLD_SIZE`` ranks) is a JAX process (host);
-* on a node the loader's batch is the node's batch, and its local rank
-  ``l`` of ``L`` takes rows ``[l·B/L, (l+1)·B/L)``, the block ``P('data')``
-  gives device ``l``; the global batch is the nodes' batches in node order,
-  so rank ``r``'s block is rows ``[r·b, (r+1)·b)`` of it, ``b = B/L``;
+  ``LOCAL_WORLD_SIZE`` ranks) is a JAX process (host), and a model group
+  never spans nodes;
+* on a node the loader's batch is the node's batch, split over the node's
+  ``L / model_size`` data indices: local data index ``l`` takes rows
+  ``[l·b, (l+1)·b)``, ``b = B·model_size/L``, the block ``P('data')``
+  gives it; the global batch is the nodes' batches in node order, so data
+  index ``d``'s block is rows ``[d·b, (d+1)·b)`` of it;
 * the model's masked reductions (BatchNorm, the MMTM gate means), the
   loss's valid count, the metrics and the gradients are summed over the
-  world (:func:`all_reduce_`, :func:`differentiable_sum`).
+  data group (:func:`all_reduce_`, :func:`differentiable_sum` with
+  ``world.data_group``); the wide weights are split over the model group
+  (:mod:`.tensor`).
 
-The world is the default process group.  Whether the model code reduces
-over it is set for the duration of a step by :func:`data_parallel` (the
-trainer enters it); outside it, :func:`active` is None and every reduction
-stays local.
+At ``model_size`` 1 the data group is the world (the default process
+group) and no subgroup is made.  Whether the model code reduces over a world
+is set for the duration of a step by :func:`data_parallel` (the trainer
+enters it); outside it, :func:`active` is None and every reduction stays
+local.
 
 Every collective is an ``all_reduce`` (SUM) or a ``broadcast``, the two
 that both NCCL and gloo carry on CUDA tensors: a gather writes the rank's
 rows into a zero buffer of the global shape and sums it (exact), a barrier
-sums a scalar.  Each adds one to :func:`collective_count`, at world 1 too.
+sums a scalar.  Each adds one to :func:`collective_count`, and its bytes
+to its group's in :func:`collective_bytes`, at world 1 too.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, field, replace
 from typing import Optional, Sequence
 
 import torch
@@ -43,16 +55,28 @@ import torch.distributed as dist
 
 @dataclass(frozen=True)
 class World:
-    """The ranks a data-parallel run spans: ``size`` ranks of which this is
-    ``rank``, ``local_size`` a node."""
+    """The ranks a run spans: ``size`` ranks of which this is ``rank``,
+    ``local_size`` a node, ``model_size`` a model group; the process groups
+    of this rank's data and model groups (None at ``model_size`` 1: the
+    data group is then the default group, and there is no model group)."""
 
     size: int
     rank: int
     local_size: int
+    model_size: int = 1
+    data_group: object = field(default=None, compare=False, repr=False)
+    model_group: object = field(default=None, compare=False, repr=False)
 
     def __post_init__(self):
         if self.size % self.local_size:
             raise ValueError(f"{self.size} ranks do not split into nodes of {self.local_size}")
+        if self.size % self.model_size:
+            raise ValueError(f"model_parallel={self.model_size} does not divide the {self.size} ranks")
+        if self.local_size % self.model_size:
+            raise ValueError(
+                f"model_parallel={self.model_size} does not divide the {self.local_size} ranks of a node: a model "
+                "group must not span nodes"
+            )
 
     @property
     def node(self) -> int:
@@ -66,25 +90,50 @@ class World:
     def local_rank(self) -> int:
         return self.rank % self.local_size
 
+    @property
+    def data_index(self) -> int:
+        return self.rank // self.model_size
+
+    @property
+    def data_size(self) -> int:
+        return self.size // self.model_size
+
+    @property
+    def model_index(self) -> int:
+        return self.rank % self.model_size
+
     def rows(self, batch_size: int) -> slice:
-        """This rank's rows of a node batch of ``batch_size``; a batch that
-        does not split evenly over the node's ranks raises, as the JAX
+        """This rank's rows of a node batch of ``batch_size``: its data
+        index's block, the same on every rank of a model group.  A batch that
+        does not split evenly over the node's data indices raises, as the JAX
         package's ``P('data')`` sharding refuses it."""
-        if batch_size % self.local_size:
+        slots = self.local_size // self.model_size
+        if batch_size % slots:
             raise ValueError(
-                f"batch size {batch_size} does not split over {self.local_size} ranks a node: data parallelism "
-                "needs the batch size to be a multiple of the ranks a node"
+                f"batch size {batch_size} does not split over the {slots} data indices of a node: data "
+                "parallelism needs the batch size to be a multiple of the ranks a node (over model_parallel)"
             )
-        b = batch_size // self.local_size
-        return slice(self.local_rank * b, (self.local_rank + 1) * b)
+        b = batch_size // slots
+        slot = self.local_rank // self.model_size
+        return slice(slot * b, (slot + 1) * b)
 
 
-def world_from_process_group() -> World:
+def world_from_process_group(model_parallel: int = 1) -> World:
     """The :class:`World` of the default process group; a node is
     ``LOCAL_WORLD_SIZE`` ranks (``torchrun``'s), the whole world without
-    it."""
+    it.  With ``model_parallel`` > 1 every rank makes every model group,
+    then every data group, in that order (``dist.new_group``), and keeps
+    its own two; a world or a node that ``model_parallel`` does not divide
+    raises ``ValueError`` first, on every rank alike."""
     size = dist.get_world_size()
-    return World(size=size, rank=dist.get_rank(), local_size=int(os.environ.get("LOCAL_WORLD_SIZE", size)))
+    world = World(size=size, rank=dist.get_rank(), local_size=int(os.environ.get("LOCAL_WORLD_SIZE", size)),
+                  model_size=int(model_parallel))
+    if world.model_size == 1:
+        return world
+    tp = world.model_size
+    model_groups = [dist.new_group(list(range(d * tp, (d + 1) * tp))) for d in range(world.data_size)]
+    data_groups = [dist.new_group(list(range(m, size, tp))) for m in range(tp)]
+    return replace(world, data_group=data_groups[world.model_index], model_group=model_groups[world.data_index])
 
 
 _ACTIVE: Optional[World] = None
@@ -110,6 +159,12 @@ def data_parallel(world: Optional[World]):
 
 class _Counter:
     count = 0
+    nbytes: dict = {}
+
+    @classmethod
+    def add(cls, tensor: torch.Tensor, group) -> None:
+        cls.count += 1
+        cls.nbytes[group] = cls.nbytes.get(group, 0) + tensor.numel() * tensor.element_size()
 
 
 def collective_count() -> int:
@@ -117,48 +172,59 @@ def collective_count() -> int:
     return _Counter.count
 
 
+def collective_bytes() -> dict:
+    """{group (None: the world): bytes of the tensors its collectives
+    carried} since the last :func:`reset_collective_count`."""
+    return dict(_Counter.nbytes)
+
+
 def reset_collective_count() -> None:
     _Counter.count = 0
+    _Counter.nbytes = {}
 
 
-def all_reduce_(tensor: torch.Tensor) -> torch.Tensor:
-    """Sum ``tensor`` over the world, in place; returns it."""
-    _Counter.count += 1
-    dist.all_reduce(tensor, op=dist.ReduceOp.SUM)
+def all_reduce_(tensor: torch.Tensor, group=None) -> torch.Tensor:
+    """Sum ``tensor`` over ``group`` (None: the world), in place; returns it."""
+    _Counter.add(tensor, group)
+    dist.all_reduce(tensor, op=dist.ReduceOp.SUM, group=group)
     return tensor
 
 
-def broadcast_(tensor: torch.Tensor, src: int = 0) -> torch.Tensor:
-    """Rank ``src``'s ``tensor`` on every rank, in place; returns it."""
-    _Counter.count += 1
-    dist.broadcast(tensor, src=src)
+def broadcast_(tensor: torch.Tensor, src: int = 0, group=None) -> torch.Tensor:
+    """Rank ``src``'s ``tensor`` (``src`` a rank of the world) on every rank
+    of ``group`` (None: the world), in place; returns it."""
+    _Counter.add(tensor, group)
+    dist.broadcast(tensor, src=src, group=group)
     return tensor
 
 
-class _SumOverWorld(torch.autograd.Function):
-    """y = the sum of x over the ranks; the backward sums the ranks'
+class _SumOverGroup(torch.autograd.Function):
+    """y = the sum of x over the group's ranks; the backward sums the ranks'
     upstream gradients the same way, as ``SyncBatchNorm``'s does."""
 
     @staticmethod
-    def forward(ctx, x):
-        return all_reduce_(x.clone())
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce_(x.clone(), group)
 
     @staticmethod
     def backward(ctx, grad):
-        return all_reduce_(grad.contiguous().clone())
+        return all_reduce_(grad.contiguous().clone(), ctx.group), None
 
 
-def differentiable_sum(tensor: torch.Tensor) -> torch.Tensor:
-    """``tensor`` summed over the world, differentiable."""
-    return _SumOverWorld.apply(tensor)
+def differentiable_sum(tensor: torch.Tensor, group=None) -> torch.Tensor:
+    """``tensor`` summed over ``group`` (None: the world), differentiable."""
+    return _SumOverGroup.apply(tensor, group)
 
 
 def gather(tensor: torch.Tensor, world: World) -> torch.Tensor:
-    """Every rank's ``tensor`` stacked in rank order, (size, *shape): this
-    rank's in a zero buffer, summed over the world (exact)."""
-    out = torch.zeros((world.size,) + tuple(tensor.shape), dtype=tensor.dtype, device=tensor.device)
-    out[world.rank] = tensor
-    return all_reduce_(out)
+    """Every data index's ``tensor`` stacked in data-index order,
+    (data_size, *shape): this rank's in a zero buffer, summed over its data
+    group (exact).  The ranks of a model group hold the same rows, so one
+    rank a data index stands for them."""
+    out = torch.zeros((world.data_size,) + tuple(tensor.shape), dtype=tensor.dtype, device=tensor.device)
+    out[world.data_index] = tensor
+    return all_reduce_(out, world.data_group)
 
 
 def barrier(device) -> None:
@@ -179,12 +245,21 @@ def _unflatten_into(flat: torch.Tensor, tensors: Sequence[torch.Tensor]) -> None
             offset += n
 
 
-def all_reduce_grads_(params: Sequence[torch.Tensor]) -> None:
-    """Sum the gradients of ``params`` over the world in one collective;
-    a parameter without a gradient (on every rank alike) is skipped."""
+def all_reduce_grads_(params: Sequence[torch.Tensor], group=None) -> None:
+    """Sum the gradients of ``params`` over ``group`` (None: the world) in
+    one collective; a parameter without a gradient (on every rank alike) is
+    skipped."""
     grads = [p.grad for p in params if p.grad is not None]
     if grads:
-        _unflatten_into(all_reduce_(_flat_f32(grads)), grads)
+        _unflatten_into(all_reduce_(_flat_f32(grads), group), grads)
+
+
+def broadcast_grads_(params: Sequence[torch.Tensor], src: int, group=None) -> None:
+    """Rank ``src``'s gradients of ``params`` on every rank of ``group``, in
+    one collective; a parameter without a gradient is skipped."""
+    grads = [p.grad for p in params if p.grad is not None]
+    if grads:
+        _unflatten_into(broadcast_(_flat_f32(grads), src, group), grads)
 
 
 def broadcast_module_(module: torch.nn.Module, src: int = 0) -> None:

@@ -6,13 +6,17 @@ one process a device, started by ``torchrun``:
 
     torchrun --nproc_per_node=N -m greedy_multimodal_learning_tpu_torch.train RUN \\
         "configs/training_guided.gin#configs/training_dp_v5e8.gin"
+    torchrun --nproc_per_node=N -m greedy_multimodal_learning_tpu_torch.train RUN \\
+        "configs/training_guided.gin#configs/training_dp_v5e8.gin" "training_loop.model_parallel=2"
 
 :func:`maybe_initialize_distributed` makes the process group from
 ``torchrun``'s environment (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
 ``LOCAL_WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``); a rank's device
 is ``cuda:<LOCAL_RANK>`` (:func:`rank_device`).  Each node's loaders read
 :func:`process_local_indices` of every split, and the ranks of a node split
-the node's batch (:class:`~.mesh.World`).
+the node's batch (:class:`~.mesh.World`); with ``model_parallel`` the
+ranks of a model group take the same rows, and ``model_parallel`` must
+divide ``LOCAL_WORLD_SIZE``.
 
 ``training_loop.data_parallel`` without such a group runs over a one-rank
 group of its own (:func:`join_world`): NCCL on a card, gloo on the CPU, as
@@ -88,16 +92,23 @@ def rank_device(device) -> torch.device:
     return device
 
 
-def join_world(device, timeout: datetime.timedelta = GROUP_TIMEOUT) -> tuple:
-    """(the :class:`~.mesh.World` of the default process group, whether this
-    call made the group): without one, a one-rank group of this process,
-    NCCL for a card and gloo for the CPU, which the caller destroys."""
+def join_world(device, model_parallel: int = 1, timeout: datetime.timedelta = GROUP_TIMEOUT) -> tuple:
+    """(the :class:`~.mesh.World` of the default process group with
+    ``model_parallel`` ranks a model group, whether this call made the
+    group): without one, a one-rank group of this process, NCCL for a card
+    and gloo for the CPU, which the caller destroys.  A world or a node
+    that ``model_parallel`` does not divide raises ``ValueError`` (a
+    one-rank group only after it is destroyed again)."""
     if dist.is_initialized():
-        return world_from_process_group(), False
+        return world_from_process_group(model_parallel), False
     backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
     dist.init_process_group(backend=backend, store=dist.HashStore(), rank=0, world_size=1, timeout=timeout)
     logger.info("data parallelism over a one-rank %s group", backend)
-    return World(size=1, rank=0, local_size=1), True
+    try:
+        return world_from_process_group(model_parallel), True
+    except ValueError:
+        dist.destroy_process_group()
+        raise
 
 
 def leave_world(made: bool) -> None:

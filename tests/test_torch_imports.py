@@ -1,5 +1,6 @@
 """The port stands alone: importing every module of
-``greedy_multimodal_learning_tpu_torch`` and ``chip_smoke`` loads no jax,
+``greedy_multimodal_learning_tpu_torch`` (``parallel/tensor.py`` included)
+and ``chip_smoke`` loads no jax,
 flax, optax nor anything of the JAX package, and no source of the port or
 of its tools at the repository's root (``chip_smoke.py``, ``kernel_ab.py``,
 ``kernel_phases.py``) has an import of them."""
@@ -48,10 +49,10 @@ def test_importing_the_port_loads_no_jax():
     # the serving and training slices' modules, the analysis package, the eval
     # entry, the host library's loader (utils.native), the 3D family's models
     # and clip data, the side entries (BatchNorm folding, the sweep and its
-    # entry, run_api) and data parallelism
-    assert n_modules >= 50, r.stdout
+    # entry, run_api), data parallelism and tensor parallelism
+    assert n_modules >= 51, r.stdout
     for name in ("engine.fold_bn", "engine.sweep", "eval_sweep", "run_api", "parallel", "parallel.mesh",
-                 "parallel.multihost", "parallel.launch"):
+                 "parallel.multihost", "parallel.launch", "parallel.tensor"):
         assert f"greedy_multimodal_learning_tpu_torch.{name}" in r.stdout, name
 
 

@@ -199,10 +199,11 @@ def _jax_start(state):
     }
 
 
-def _jax_reference(momentum):
-    """Two guided steps of the JAX package's sharded step on a two-device
-    mesh (``tests/test_parallel.py:18-86``): the port's start before each
-    step, the flips, the losses and the parameters after the first."""
+def _jax_reference(momentum, devices=2, model_parallel=1):
+    """Two guided steps of the JAX package's sharded step on a mesh of
+    ``devices`` CPU devices, ``model_parallel`` a model axis
+    (``tests/test_parallel.py:18-86``): the port's start before each step,
+    the flips, the losses and the parameters after the first."""
     import jax
     import jax.numpy as jnp
 
@@ -222,7 +223,7 @@ def _jax_reference(momentum):
     step = build_train_step(model, optimizer, gm, ctrl, donate=False)
     batches = _batches((B, V, IMG, IMG, 3), [np.ones(B)] * 2)
 
-    mesh = make_mesh(jax.devices()[:2], model_parallel=1)
+    mesh = make_mesh(jax.devices()[:devices], model_parallel=model_parallel)
     sh = shard_train_state(state, mesh)
     ref = {"starts": [], "flips": [], "losses": [], "batches": batches}
     with mesh:

@@ -29,6 +29,7 @@ from greedy_multimodal_learning_tpu_torch.bootstrap import init_model
 from greedy_multimodal_learning_tpu_torch.engine import load_weights
 from greedy_multimodal_learning_tpu_torch.entries import construct_callbacks, eval_, train
 from greedy_multimodal_learning_tpu_torch.models import MMTMMVCNN
+from greedy_multimodal_learning_tpu_torch.parallel import tensor as tensor_parallel
 
 REPO = os.path.join(os.path.dirname(__file__), "..")
 CONFIG = os.path.join(REPO, "configs", "training_guided.gin")
@@ -136,19 +137,35 @@ def test_callbacks_by_name():
 
 @pytest.mark.parametrize("binding, match", [
     ("training_loop.orbax_dir='ckpt'", "orbax_dir"),
-    ("training_loop.model_parallel=2", "model_parallel"),
-    ("evalution_loop.model_parallel=2", "model_parallel"),
 ])
 def test_unported_loop_options_raise(tmp_path, binding, match):
-    """The options the port does not run raise, in the entry whose loop
-    takes them (``evalution_loop`` ones in ``eval_``)."""
+    """``orbax_dir``, which the port does not run (Orbax is a JAX library's
+    format), raises in ``train``."""
     root = make_synthetic_modelnet(str(tmp_path / "data"), n_train=5, n_test=2, num_views=2, image_size=IMG, nclasses=NC)
     port_cfg.parse_config_files_and_bindings(
-        [CONFIG], "\n".join(_bindings(root) + ["train.device='cpu'", "eval_.device='cpu'", binding])
-    )
-    entry = eval_ if binding.startswith("evalution_loop") else train
+        [CONFIG], "\n".join(_bindings(root) + ["train.device='cpu'", binding]))
     with pytest.raises(NotImplementedError, match=match):
-        entry(str(tmp_path / "run"))
+        train(str(tmp_path / "run"))
+
+
+@pytest.mark.parametrize("binding", ["training_loop.model_parallel=2", "evalution_loop.model_parallel=2"])
+def test_model_parallel_without_data_parallel_is_ignored(tmp_path, binding):
+    """Without ``data_parallel`` ``model_parallel`` is ignored, as the JAX
+    package builds its mesh only under ``data_parallel``: the entry whose
+    loop takes it (``evalution_loop``'s in ``eval_``, on a trained run's
+    checkpoint) runs the plain path, with no world and nothing sharded."""
+    root = make_synthetic_modelnet(str(tmp_path / "data"), n_train=5, n_test=2, num_views=2, image_size=IMG, nclasses=NC)
+    common = _bindings(root) + ["train.device='cpu'", "eval_.device='cpu'"]
+    port_cfg.parse_config_files_and_bindings(
+        [CONFIG], "\n".join(common + ([binding] if binding.startswith("training_loop") else [])))
+    trainer = train(str(tmp_path / "run"))
+    if binding.startswith("evalution_loop"):
+        port_cfg.clear_config()
+        port_cfg.parse_config_files_and_bindings([CONFIG], "\n".join(common + [
+            binding, f"eval_.pretrained_weights_path='{tmp_path / 'run' / 'model_last_epoch.pt'}'"]))
+        trainer = eval_(str(tmp_path / "eval"))
+        assert (tmp_path / "eval" / "eval_history_batch" / "history.csv").exists()
+    assert trainer.world is None and not tensor_parallel.is_sharded(trainer.model)
 
 
 @pytest.mark.parametrize("binding", [
