@@ -70,7 +70,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 9. the other controllers through the ``train`` entry on phase 5's split,
    float32 with the kernels, two epochs: ``configs/training_random.gin``
    (no step curated before its ``starting_epoch``, each step's decision the
-   draw of (seed, step)), ``configs/training_weakest.gin`` (the target
+   JAX package's draw from the seed's key chain), ``configs/training_weakest.gin`` (the target
    designated after epoch 1 from the validation accuracies, curated on the
    duty cycle in epoch 2) and the guided configuration with
    ``Bias_Mitigation_AdaptiveWeakest`` in place of the guided callback
@@ -90,7 +90,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    test clips: ``train`` with ``configs/training_3dcnn_guided.gin`` in
    float32 and bfloat16 (``MMTM_3DCNN.compute_dtype``), two epochs, at least
    one step curated, and with ``configs/training_3dcnn_random.gin`` (each
-   step's decision the draw of (seed, step) over modes 0..3); ``eval_``
+   step's decision the key chain's draw over modes 0..3); ``eval_``
    with ``configs/recording_3dcnn.gin`` over the whole train file (the
    pickle nests 3 MMTMs x 3 modalities) and ``configs/eval_3dcnn.gin``
    (flow off) over the test split, on the float32 run's
@@ -160,9 +160,25 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    at tp 2 against phase 13's one-process recording: every index once in
    its order, the maps within the kernel's ``sq`` tolerance.  Samples/s of
    each, for correctness only;
-15. a ``{"kernels": [...]}`` JSON line (with the launch counts of each 3D
-   run, all 0, of each phase-12 run and of phase 13's and 14's runs and
-   ranks), the ``nvidia-smi`` line, and last ``{"ok": true, "device":
+15. the JAX package's random streams and ``training_loop.orbax_dir`` on the
+   2-D family at full width (224², B=128, kernels): (a) ``init_model(777)``
+   on the card bit-identical to the CPU's for both families at full width,
+   with the seconds of each; (b) 5 steps' flips ((B, V) and (B,)) and random
+   controller decisions on the card equal to the CPU's and to the seed's
+   key chain, and the host microseconds of a step's draws; (c) the ``train``
+   entry with ``configs/training_random.gin``, ``orbax_dir`` and
+   ``orbax_max_to_keep=2`` over 3 epochs under cuDNN's deterministic
+   algorithms: snapshots 2 and 3 kept, the same run without snapshots and
+   a 2-epoch run (world 1 over NCCL, the saves over a gloo group beside it)
+   resumed from its newest snapshot bit-identical to it
+   (history, decisions, whole state), how long each save held the loop
+   against a synchronous ``dcp.save``, the bytes of a snapshot, the epoch
+   times with and without; (d) a snapshot of dp 1 × tp 2 gloo ranks on
+   cuda:0 (one guided step each) restored into one process at tp 1: the
+   ranks' whole state, from 4 × 26 row-block keys;
+16. a ``{"kernels": [...]}`` JSON line (with the launch counts of each 3D
+   run, all 0, of each phase-12 run and of phase 13's, 14's and 15's runs
+   and ranks), the ``nvidia-smi`` line, and last ``{"ok": true, "device":
    {...}}``.  Each phase's seconds are logged.
 
 Scratch files go to ``smoke_out/`` in the checkout (git-ignored); the
@@ -207,6 +223,7 @@ from greedy_multimodal_learning_tpu_torch.engine.sweep import eval_sweep
 from greedy_multimodal_learning_tpu_torch.entries import eval_, train
 from greedy_multimodal_learning_tpu_torch.eval_sweep import eval_sweep_
 from greedy_multimodal_learning_tpu_torch.models import MMTM3DCNN, MMTMMVCNN, ResNet18Trunk, init_parameters
+from greedy_multimodal_learning_tpu_torch.models import layers as init_layers
 from greedy_multimodal_learning_tpu_torch.ops import build as kernel_build
 from greedy_multimodal_learning_tpu_torch.ops.mmtm_gating import (
     cuda_launches,
@@ -221,6 +238,7 @@ from greedy_multimodal_learning_tpu_torch.parallel import tensor as tensor_paral
 from greedy_multimodal_learning_tpu_torch.parallel.launch import run_ranks
 from greedy_multimodal_learning_tpu_torch.predict import predict_
 from greedy_multimodal_learning_tpu_torch.run_api import run_entry
+from greedy_multimodal_learning_tpu_torch.utils import prng
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(REPO, "smoke_out")
@@ -1231,17 +1249,27 @@ def weakest_targets(rows, min_gap=None):
     return out
 
 
+def chain_draws(seed, steps, n):
+    """The random controller's draws of ``steps`` steps from ``PRNGKey(seed)``
+    (one split a step, ``randint(sub, (), 0, n + 1)``), on the host."""
+    key, draws = prng.PRNGKey(seed), []
+    for _ in range(steps):
+        key, draw = random_draw(key, n)
+        draws.append(draw)
+    return draws
+
+
 def controller_phase():
     """Phase 9: the random, weakest and adaptive-weakest controllers through
     the ``train`` entry at full width on phase 5's split (float32, kernels)."""
     per_epoch = N_TRAIN // BATCH
     report = {}
 
-    # random: unlocked from epoch 2; each decision the draw of (seed, step);
-    # a step's forward takes the decision of the step before
+    # random: unlocked from epoch 2; each decision the JAX package's draw from
+    # the key chain of the seed; a step's forward takes the decision of the
+    # step before
     report["random"], steps, _ = controller_run("random", ["configs/training_random.gin"], TRAIN_BINDINGS[:-1], 3)
-    gen = torch.Generator(device="cuda")
-    draws = [int(random_draw(gen, SEED, t, 2)) for t in range(3 * per_epoch)]
+    draws = chain_draws(SEED, 3 * per_epoch, 2)
     decisions = [(t >= per_epoch and d != 0, (1 if d == 1 else 0) if t >= per_epoch and d != 0 else 0)
                  for t, d in enumerate(draws)]
     check_steps("random", steps, decisions, [False] + [m for m, _ in decisions[:-1]])
@@ -1458,13 +1486,13 @@ def clip_phase():
         del trainer
         torch.cuda.empty_cache()
 
-    # random: locked in epoch 1 (starting_epoch 2); each decision the draw of
-    # (seed, step) over modes 0..3, mode m > 0 caring for modality m - 1
+    # random: locked in epoch 1 (starting_epoch 2); each decision the JAX
+    # package's draw from the seed's key chain over modes 0..3, mode m > 0
+    # caring for modality m - 1
     report["random"], steps, trainer = clip_run("random", "configs/training_3dcnn_random.gin", [])
     del trainer
     per_epoch = N_CLIP_TRAIN // CLIP_BATCH
-    gen = torch.Generator(device="cuda")
-    draws = [int(random_draw(gen, SEED, t, CLIP_MODALITIES)) for t in range(2 * per_epoch)]
+    draws = chain_draws(SEED, 2 * per_epoch, CLIP_MODALITIES)
     decisions = [(t >= per_epoch and d != 0, d - 1 if t >= per_epoch and d != 0 else 0) for t, d in enumerate(draws)]
     check_steps("3dcnn random", steps, decisions, [False] + [m for m, _ in decisions[:-1]])
     report["random"]["draws"] = draws
@@ -1801,7 +1829,7 @@ def pretrained_check():
     ResNet-18 file: each tower's trunk is the file's before the first step,
     its head the seeded one; then one epoch."""
     trunk = ResNet18Trunk(1000)
-    init_parameters(trunk, torch.Generator().manual_seed(8))
+    init_parameters(trunk, prng.PRNGKey(8))
     g = torch.Generator().manual_seed(9)
     with torch.no_grad():
         for m in trunk.modules():
@@ -2487,6 +2515,264 @@ def tp_phase(run_dir):
     return report
 
 
+# ---- phase 15 helpers ------------------------------------------------------------
+
+
+DRAW_CALLS = 200  # host draws timed for the per-step cost
+SNAP_CONFIGS = ["configs/training_random.gin"]
+SNAP_EPOCHS = 3  # (c): the straight run's epochs; snapshots of the last two kept
+
+
+def init_check():
+    """(a) ``init_model(SEED)`` on the card against the CPU, bit for bit, for
+    both families at full width (the draws are made on the host either way),
+    each drawn anew (the process keeps the last two draws: cleared before
+    each), with the seconds of each, and of a third init that finds the
+    draws kept."""
+    out = {}
+    for family, make in (("2d", lambda: MMTMMVCNN(nclasses=40, use_pallas=True)),
+                         ("3d", lambda: MMTM3DCNN(nclasses=CLIP_CLASSES))):
+        init_layers._initial_state.cache_clear()
+        t0 = time.time()
+        cpu = init_model(make(), SEED, "cpu")
+        cpu_s = time.time() - t0
+        init_layers._initial_state.cache_clear()
+        t0 = time.time()
+        card = init_model(make(), SEED, "cuda")
+        torch.cuda.synchronize()
+        card_s = time.time() - t0
+        t0 = time.time()
+        init_model(make(), SEED, "cuda")
+        torch.cuda.synchronize()
+        kept_s = time.time() - t0
+        want = cpu.state_dict()
+        differ = [k for k, v in card.state_dict().items() if not torch.equal(v.cpu(), want[k])]
+        n = sum(p.numel() for p in cpu.parameters())
+        log(f"[prng init {family}] {n} parameters: init_model {card_s:.2f}s on cuda, {cpu_s:.2f}s on the CPU, "
+            f"{kept_s:.2f}s on cuda with the draws kept; {len(want) - len(differ)} of {len(want)} tensors "
+            "bit-identical")
+        if differ:
+            raise AssertionError(f"init {family}: the card's init differs from the CPU's in {differ[:5]}")
+        out[family] = {"parameters": n, "init_s_cuda": card_s, "init_s_cpu": cpu_s, "init_s_kept": kept_s}
+        if family == "2d":
+            out["models"] = (cpu, card)
+        else:
+            del cpu, card
+            torch.cuda.empty_cache()
+    return out
+
+
+def draws_check(cpu_model, card_model):
+    """(b) the flips ((B, V) images, (B,) clips) and the random controller's
+    decisions of 5 steps on the card equal the CPU's; the host's cost of
+    a step's draws."""
+    def random_trainer(model, device):
+        return Trainer(model, make_optimizer(model.parameters(), lr=0.1), controller_kind="random", nummodalities=2,
+                       seed=SEED, device=device, verbose=False)
+
+    card, cpu = random_trainer(card_model, "cuda"), random_trainer(cpu_model, "cpu")
+    decisions = {"cuda": [], "cpu": []}
+    for t in range(5):
+        for trainer in (card, cpu):
+            trainer.step = t
+        for shape in ((BATCH, 2), (CLIP_BATCH,)):
+            got, want = card.train_flips(*shape), cpu.train_flips(*shape)
+            if got.device.type != "cuda" or not torch.equal(got.cpu(), want):
+                raise AssertionError(f"step {t}: the card's {shape} flips differ from the CPU's")
+        for device, trainer in (("cuda", card), ("cpu", cpu)):
+            ones = torch.ones(4, device=device)
+            trainer.ctrl = trainer._controller_update(trainer.ctrl, ones, ones, torch.tensor(t >= 1, device=device))
+            decisions[device].append((trainer.ctrl.curation_mode, trainer.ctrl.caring_modality))
+    fetched = {d: [(bool(m), int(c)) for m, c in v] for d, v in decisions.items()}
+    if fetched["cuda"] != fetched["cpu"] or fetched["cuda"] != [
+            (t >= 1 and d != 0, (1 if d == 1 else 0) if t >= 1 and d != 0 else 0)
+            for t, d in enumerate(chain_draws(SEED, 5, 2))]:
+        raise AssertionError(f"random decisions: card {fetched['cuda']}, CPU {fetched['cpu']}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(DRAW_CALLS):
+        card.step = t
+        card.train_flips(BATCH, 2)
+    flips_us = (time.perf_counter() - t0) / DRAW_CALLS * 1e6
+    key = prng.PRNGKey(SEED)
+    t0 = time.perf_counter()
+    for _ in range(DRAW_CALLS):
+        key, _ = random_draw(key, 2)
+    ctrl_us = (time.perf_counter() - t0) / DRAW_CALLS * 1e6
+    torch.cuda.synchronize()
+    log(f"[prng draws] 5 steps: flips (B={BATCH}, V=2) and (B={CLIP_BATCH},) and random decisions {fetched['cuda']} "
+        f"equal on the card and the CPU; host us a step: flips {flips_us:.1f} (draw, pinned copy, upload queued), "
+        f"random controller draw {ctrl_us:.1f}")
+    return {"decisions": fetched["cuda"], "flips_host_us": flips_us, "controller_draw_host_us": ctrl_us}
+
+
+def snapshot_run(tag, extra):
+    """One counted ``train`` run of (c) on phase 5's split (random
+    controller, f32, kernels), its steps logged; returns (trainer,
+    forward launches, backward launches, history rows, steps)."""
+    save_path = os.path.join(TRAIN_RUNS, tag)
+    with step_log() as steps:
+        trainer, fwd, bwd, wall = counted(train, SNAP_CONFIGS, TRAIN_BINDINGS[:-1] + extra, save_path, 3)
+    with open(os.path.join(save_path, "history.csv")) as f:
+        rows = list(csv.DictReader(f))
+    for r in rows:
+        if not np.isfinite([float(r[k]) for k in ("loss", "val_loss", "test_loss")]).all():
+            raise AssertionError(f"{tag}: epoch {r['epoch']} is not finite")
+    log(f"[snapshots {tag}] {len(rows)} epochs, {trainer.step} steps, {wall:.1f}s, launches {fwd} / {bwd}; "
+        f"epoch s {[round(float(r['time']), 3) for r in rows]}; decisions {[(m, k) for _, _, m, k in steps]}")
+    return trainer, fwd, bwd, rows, steps
+
+
+def history_values(rows):
+    return [{k: v for k, v in r.items() if k not in DP_TIME_COLUMNS} for r in rows]
+
+
+def dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+
+
+def snapshot_train_check():
+    """(c) the ``train`` entry with ``orbax_dir`` and ``orbax_max_to_keep=2``
+    over SNAP_EPOCHS epochs, under cuDNN's deterministic algorithms: the
+    last two snapshots kept; the same run without snapshots bit-identical
+    to it (epoch times side by side); a run of one epoch fewer (at world 1
+    over NCCL, so the saves take the gloo group beside it), resumed from
+    its newest snapshot, bit-identical to the straight run; how long
+    each save held the loop, against one synchronous ``dcp.save`` of the
+    same state, and the bytes of one snapshot."""
+    import torch.distributed.checkpoint as dcp
+    from greedy_multimodal_learning_tpu_torch.engine.snapshots import Snapshots, state_to_tree
+
+    epochs = [f"training_loop.n_epochs={SNAP_EPOCHS + 1}"]
+    snap = ["training_loop.orbax_dir='snapshots'", "training_loop.orbax_max_to_keep=2"]
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    restored = []
+    original = Snapshots.restore_latest
+
+    def spy(self, trainer):
+        restored.append(original(self, trainer))
+        return restored[-1]
+
+    try:
+        runs = {"straight": snapshot_run("snap_straight", epochs + snap),
+                "plain": snapshot_run("snap_plain", epochs)}
+        straight = runs["straight"][0]
+        kept = sorted(os.listdir(os.path.join(TRAIN_RUNS, "snap_straight", "snapshots")))
+        blocked = list(straight.snapshots.blocked_s)
+        nbytes = dir_bytes(os.path.join(TRAIN_RUNS, "snap_straight", "snapshots", str(SNAP_EPOCHS)))
+        sync_dir = os.path.join(TRAIN_RUNS, "snap_sync")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dcp.save(state_to_tree(straight), checkpoint_id=sync_dir, no_dist=True)
+        sync_s = time.perf_counter() - t0
+        # its first epochs at world 1 over NCCL: the saves coordinate over a
+        # gloo group made beside it
+        snapshot_run("snap_resumed", [f"training_loop.n_epochs={SNAP_EPOCHS}", "training_loop.data_parallel=True"]
+                     + snap)
+        Snapshots.restore_latest = spy
+        runs["resumed"] = snapshot_run("snap_resumed", epochs + snap + ["training_loop.resume=True"])
+    finally:
+        Snapshots.restore_latest = original
+        torch.backends.cudnn.deterministic = deterministic
+    if kept != [str(SNAP_EPOCHS - 1), str(SNAP_EPOCHS)]:
+        raise AssertionError(f"snapshots kept {kept}, want the last two of {SNAP_EPOCHS}")
+    if restored != [SNAP_EPOCHS - 1]:
+        raise AssertionError(f"the resume restored snapshot(s) {restored}, want {SNAP_EPOCHS - 1}")
+    whole = {tag: whole_digest(dp_state(r[0])) for tag, r in runs.items()}
+    steps = {tag: r[0].step for tag, r in runs.items()}
+    same = {tag: history_values(r[3]) == history_values(runs["straight"][3]) for tag, r in runs.items()}
+    decisions = {tag: [(m, k) for _, _, m, k in r[4]] for tag, r in runs.items()}
+    log(f"[snapshots] kept {kept}; resumed from {restored}; whole-state digests equal: plain "
+        f"{whole['plain'] == whole['straight']}, resumed {whole['resumed'] == whole['straight']}; histories equal "
+        f"{same}; steps {steps}; save() held the loop {[round(b * 1e3, 2) for b in blocked]} ms against one "
+        f"synchronous dcp.save {sync_s * 1e3:.1f} ms; {nbytes} bytes a snapshot")
+    if whole["plain"] != whole["straight"] or whole["resumed"] != whole["straight"] or not all(same.values()):
+        raise AssertionError(f"snapshots: the runs differ (digests {whole}, histories equal {same})")
+    if decisions["resumed"] != decisions["straight"][-len(decisions["resumed"]):]:
+        raise AssertionError(f"resumed decisions {decisions['resumed']} do not continue {decisions['straight']}")
+    epoch_s = {tag: [float(r["time"]) for r in runs[tag][3]] for tag in ("straight", "plain")}
+    report = {"kept": kept, "restored": restored, "save_blocked_ms": [b * 1e3 for b in blocked],
+              "sync_save_ms": sync_s * 1e3, "snapshot_bytes": nbytes, "epoch_s": epoch_s,
+              "train_samples_per_s": {tag: [float(r["train_samples_per_sec"]) for r in runs[tag][3]]
+                                      for tag in ("straight", "plain")},
+              **{f"{tag}_launches": (r[1], r[2]) for tag, r in runs.items()}}
+    del runs, straight
+    torch.cuda.empty_cache()
+    return report
+
+
+def snapshot_rank(rank, directory):
+    """(d) one of two ranks sharing cuda:0 in a gloo group at dp 1 × tp 2:
+    a guided step at B=128 (so SGD's momentum exists), a snapshot through
+    the port's snapshots, the digest of the rank's whole state."""
+    from greedy_multimodal_learning_tpu_torch.engine.snapshots import Snapshots
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method="env://", timeout=DP_GROUP_TIMEOUT)
+    try:
+        world = parallel.world_from_process_group(TP)
+        trainer = dp_trainer(world, TP_SETUP)
+        data = dp_batch(41, batch=BATCH)
+        rows = world.rows(BATCH)
+        mmtm_gating.launches = mmtm_gating_bwd.launches = 0
+        trainer.train_batch({k: v[rows] for k, v in data.items()}, trainer.train_flips(BATCH // world.data_size, 2),
+                            torch.tensor(True, device="cuda"))
+        torch.cuda.synchronize()
+        launches = (mmtm_gating.launches, mmtm_gating_bwd.launches)
+        snapshots = Snapshots(directory, world=world)
+        snapshots.save(1, trainer)
+        snapshots.close()
+        return {"digest": whole_digest(dp_state(trainer)), "launches": launches, "step": trainer.step,
+                "sharded": len(tensor_parallel.sharded_weights(trainer.model)), "blocked_s": snapshots.blocked_s}
+    finally:
+        dist.destroy_process_group()
+
+
+def snapshot_tp_check():
+    """(d) a snapshot of dp 1 × tp 2 gloo ranks on cuda:0, restored into one
+    process (tp 1): every tensor of the ranks' whole state, its rows from
+    both ranks' blocks."""
+    import torch.distributed.checkpoint as dcp
+    from greedy_multimodal_learning_tpu_torch.engine.snapshots import Snapshots
+
+    directory = os.path.join(TRAIN_RUNS, "snap_tp")
+    ranks = run_ranks(snapshot_rank, TP, directory, timeout=DP_RUN_TIMEOUT)
+    keys = set(dcp.FileSystemReader(os.path.join(directory, "1")).read_metadata().state_dict_metadata)
+    blocks = sum("@rows" in k for k in keys)
+    one = dp_trainer(None, TP_SETUP)
+    epoch = Snapshots(directory).restore_latest(one)
+    digest = whole_digest(dp_state(one))
+    log(f"[snapshots tp] ranks: {[{k: r[k] for k in ('launches', 'step', 'sharded')} for r in ranks]}; {blocks} "
+        f"row-block keys; restored at tp 1 (epoch {epoch}, step {one.step}): whole state equal to the ranks' "
+        f"{digest == ranks[0]['digest'] == ranks[1]['digest']}")
+    if not (digest == ranks[0]["digest"] == ranks[1]["digest"]) or blocks != 2 * 2 * TP_SHARDED or one.step != 1:
+        raise AssertionError(f"tp snapshot: digests {[r['digest'][:12] for r in ranks]} vs {digest[:12]}, "
+                             f"{blocks} row-block keys (want {4 * TP_SHARDED}), step {one.step}")
+    for r in ranks:
+        if r["launches"] != (3, 3) or r["sharded"] != TP_SHARDED:
+            raise AssertionError(f"tp snapshot ranks: {ranks}")
+    del one
+    torch.cuda.empty_cache()
+    return {"launches_per_rank": [r["launches"] for r in ranks], "row_block_keys": blocks}
+
+
+def prng_phase():
+    """Phase 15: the JAX package's random streams and ``orbax_dir`` on the
+    card (2-D family at full width, 224², B=128, kernels): (a) the init of
+    both families, (b) the flips and random decisions, (c) snapshots
+    through ``train``, (d) a tp 2 snapshot restored at tp 1."""
+    init = init_check()
+    cpu_model, card_model = init.pop("models")
+    draws = draws_check(cpu_model, card_model)
+    del cpu_model, card_model
+    torch.cuda.empty_cache()
+    return {"init": init, "draws": draws, "train": snapshot_train_check(), "tp": snapshot_tp_check()}
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs an NVIDIA GPU", file=sys.stderr)
@@ -2554,6 +2840,8 @@ def main() -> int:
         log("[dp] " + json.dumps(dp))
         tp = phase("14 tensor parallel", tp_phase, os.path.join(TRAIN_RUNS, "f32"))
         log("[tp] " + json.dumps(tp))
+        snapshots = phase("15 random streams and snapshots", prng_phase)
+        log("[prng] " + json.dumps(snapshots))
     finally:
         shutil.rmtree(TRAIN_DATA, ignore_errors=True)
         shutil.rmtree(TRAIN_RUNS, ignore_errors=True)
@@ -2603,6 +2891,15 @@ def main() -> int:
         } for i, direction in enumerate(("fwd", "bwd"))
     }
 
+    # phase 15: the snapshot runs through train, and each tp 2 rank's step
+    snap_launches = {
+        direction: {
+            **{f"launches_snapshots_{k}": snapshots["train"][f"{k}_launches"][i]
+               for k in ("straight", "plain", "resumed")},
+            **{f"launches_snapshot_tp_rank{r}": n[i] for r, n in enumerate(snapshots["tp"]["launches_per_rank"])},
+        } for i, direction in enumerate(("fwd", "bwd"))
+    }
+
     def bound_by(report):
         return "bytes" if all(s["bound_by"] == "bytes" for s in report["sites"].values()) else "operations"
 
@@ -2633,6 +2930,7 @@ def main() -> int:
         **side_launches["fwd"],
         **dp_launches["fwd"],
         **tp_launches["fwd"],
+        **snap_launches["fwd"],
         "max_abs_err": f32["max_abs_err"],
         "max_abs_err_bf16": bf16["max_abs_err"],
         # float32, the configuration's dtype: one forward's three fusion sites at B=128
@@ -2660,6 +2958,7 @@ def main() -> int:
         **side_launches["bwd"],
         **dp_launches["bwd"],
         **tp_launches["bwd"],
+        **snap_launches["bwd"],
         "max_abs_err": bf32["max_abs_err"],
         "max_abs_err_bf16": bbf16["max_abs_err"],
         # float32: one step's three fusion sites at B=128

@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import torch
 
+from .engine.train_state import train_keys
 from .models.layers import init_parameters
 
 
@@ -47,9 +48,11 @@ def resolve_device(device) -> torch.device:
 
 
 def init_model(model: torch.nn.Module, seed: int, device) -> torch.nn.Module:
-    """Seeded initialization (on the CPU, so a seed gives the same weights
-    on every device), then move to ``device`` in the family's channels-last
-    memory format (``model.memory_format``: ``channels_last`` for 4-D
-    weights, ``channels_last_3d`` for 5-D) and switch to eval mode."""
-    init_parameters(model, torch.Generator().manual_seed(int(seed)))
+    """The JAX package's initialization for ``seed`` (drawn on the host,
+    so a seed gives the same weights on every device:
+    :func:`~.models.layers.init_parameters`), then move to ``device`` in the
+    family's channels-last memory format (``model.memory_format``:
+    ``channels_last`` for 4-D weights, ``channels_last_3d`` for 5-D) and
+    switch to eval mode."""
+    init_parameters(model, train_keys(seed)[0])
     return model.to(device=resolve_device(device), memory_format=model.memory_format).eval()

@@ -5,7 +5,8 @@ view) of a (B, V, H, W, C) image stack, as the reference's per-view
 RandomHorizontalFlip, or one flip per sample of a (B, M, T, H, W, C) clip
 batch, shared across its modalities (``transforms.py:24-58``); then the
 ImageNet normalize folded into one FMA ``x * (1/(255*std)) - mean/std``,
-computed in that dtype as the JAX package does.
+computed in that dtype as the JAX package does.  The flips are the JAX
+package's draws (:func:`draw_flips`).
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from typing import Optional
 
 import torch
 
+from ..utils import prng
 from .modelnet import IMAGENET_MEAN, IMAGENET_STD
 
 
@@ -24,10 +26,11 @@ def flip_shape(shape) -> tuple:
     return tuple(shape[:1]) if len(shape) >= 6 else tuple(shape[:2])
 
 
-def draw_flips(shape, generator: torch.Generator) -> torch.Tensor:
-    """A bool flip mask of ``shape``, each flip with probability 1/2, drawn
-    from ``generator`` on its device (never the global RNG)."""
-    return torch.rand(tuple(shape), generator=generator, device=generator.device) < 0.5
+def draw_flips(shape, key) -> torch.Tensor:
+    """The JAX package's flip mask of ``shape`` under the PRNG key ``key``:
+    ``bernoulli(key, 0.5, shape)`` (``transforms.py:47,52``), drawn on the
+    host (:mod:`..utils.prng`) as a bool CPU tensor."""
+    return torch.from_numpy(prng.bernoulli(key, 0.5, tuple(shape)))
 
 
 def preprocess(
@@ -36,20 +39,21 @@ def preprocess(
     train: bool,
     dtype=torch.float32,
     flip: Optional[torch.Tensor] = None,
-    generator: Optional[torch.Generator] = None,
+    key=None,
 ) -> torch.Tensor:
     """uint8 (B, V, H, W, C) images or (B, M, T, H, W, C) clips ->
     normalized ``dtype`` tensor on the input's device.  In train mode each
     image (clip sample) is flipped along W where the bool ``flip`` of
-    :func:`flip_shape` is set; without ``flip`` the mask is drawn from
-    ``generator`` (:func:`draw_flips`)."""
+    :func:`flip_shape` is set; without ``flip`` the mask is drawn under the
+    PRNG key ``key`` (:func:`draw_flips`), as the JAX package's
+    ``preprocess(..., rng=key)`` draws it."""
     x = images_u8.to(dtype)
     if train:
         shape = flip_shape(x.shape)
         if flip is None:
-            if generator is None:
-                raise ValueError("train preprocessing needs a flip mask or a torch.Generator")
-            flip = draw_flips(shape, generator)
+            if key is None:
+                raise ValueError("train preprocessing needs a flip mask or a PRNG key")
+            flip = draw_flips(shape, key).to(x.device)
         if tuple(flip.shape) != shape:
             raise ValueError(f"a {tuple(flip.shape)} flip mask for a {tuple(x.shape)} batch, want {shape}")
         x = torch.where(flip.view(shape + (1,) * (x.dim() - len(shape))), x.flip(-2), x)

@@ -19,10 +19,11 @@ as the JAX package's ``load_pretrained`` does (``checkpoint.py:131-142``).
 ``save_weights`` writes the ``.pt`` the same way (no MMTM buffers, no
 ``num_batches_tracked``), so the JAX package reads the port's checkpoints,
 plus a torch-native sidecar ``<file>.torch.pt`` with what the ``.pt`` lacks:
-the MMTM buffers, the controller state, the step and the optimizer state.
-``load_training_state`` reads either sidecar back for a resume
-(``checkpoint.py:238-305``): the port's own, or the JAX package's, whose
-momentum trace becomes ``torch.optim.SGD``'s momentum buffers.
+the MMTM buffers, the controller state with its PRNG key, the step, the
+data key and the optimizer state.  ``load_training_state`` reads either
+sidecar back for a resume (``checkpoint.py:238-305``): the port's own, or
+the JAX package's, whose momentum trace becomes ``torch.optim.SGD``'s
+momentum buffers and whose two keys continue the JAX run's draws.
 
 A checkpoint has one sidecar, chosen in one place (:func:`_sidecar`): the
 port removes a ``.jax.pkl`` when it rewrites a file, but the JAX package
@@ -42,7 +43,7 @@ import re
 import numpy as np
 import torch
 
-from .controller import ControllerState, init_controller_state
+from .controller import ControllerState, init_controller_state, key_tensor
 
 logger = logging.getLogger(__name__)
 
@@ -254,11 +255,13 @@ def _atomic_save(obj, path):
     os.replace(tmp, path)
 
 
-def save_weights(model: torch.nn.Module, filepath, *, optimizer=None, controller=None, step=None) -> None:
+def save_weights(model: torch.nn.Module, filepath, *, optimizer=None, controller=None, step=None,
+                 rng=None) -> None:
     """Write ``{"model": state_dict, "optimizer": {}}`` as the JAX package
     does (``checkpoint.py:85-101``), then the sidecar ``<file>.torch.pt``
-    with the MMTM buffers, the controller state (a dict of tensors), the
-    global step and the optimizer's state_dict.  A JAX package's
+    with the MMTM buffers, the controller state (a dict of tensors, its
+    PRNG key under ``rng``), the global step, the data key ``rng`` (a (2,)
+    int64 tensor of the key's words) and the optimizer's state_dict.  A JAX package's
     ``<file>.jax.pkl`` left there (a resumed run of the JAX package) no
     longer describes the file and is removed: both packages read it first."""
     state = {k: v.detach().cpu().contiguous() for k, v in model.state_dict().items()}
@@ -271,6 +274,7 @@ def save_weights(model: torch.nn.Module, filepath, *, optimizer=None, controller
             "mmtm": {k: v for k, v in state.items() if k.startswith("mmtm") and not _is_portable(k)},
             "controller": {k: v.detach().cpu() for k, v in (controller or {}).items()},
             "step": step,
+            "rng": None if rng is None else key_tensor(rng),
             "optimizer": optimizer.state_dict() if optimizer is not None else None,
         },
         f"{filepath}.torch.pt",
@@ -280,10 +284,12 @@ def save_weights(model: torch.nn.Module, filepath, *, optimizer=None, controller
 def load_training_state(model: torch.nn.Module, optimizer, filepath) -> dict:
     """Load ``filepath`` and its sidecar into ``model`` (parameters,
     BatchNorm statistics, MMTM buffers) and ``optimizer``; returns
-    ``{"controller": {name: tensor}, "step": int}``.  The sidecar is the
-    port's ``<file>.torch.pt`` or the JAX package's ``<file>.jax.pkl``
-    (:func:`_load_jax_training_state`).  Raises FileNotFoundError when
-    neither is there and ValueError when both are."""
+    ``{"controller": {name: tensor}, "step": int, "rng": data key}``, the
+    controller's ``rng`` and the data key as (2,) int64 tensors, or absent
+    and None for a port sidecar written before the port carried them.  The
+    sidecar is the port's ``<file>.torch.pt`` or the JAX package's
+    ``<file>.jax.pkl`` (:func:`_load_jax_training_state`).  Raises
+    FileNotFoundError when neither is there and ValueError when both are."""
     kind, sidecar_path = _sidecar(filepath)
     if kind == "jax":
         return _load_jax_training_state(model, optimizer, sidecar_path)
@@ -301,18 +307,17 @@ def load_training_state(model: torch.nn.Module, optimizer, filepath) -> dict:
     if optimizer is not None and side["optimizer"] is not None:
         optimizer.load_state_dict(side["optimizer"])
     logger.info("Restored %s and its sidecar (step %s)", filepath, side["step"])
-    return {"controller": side["controller"], "step": int(side["step"])}
+    return {"controller": side["controller"], "step": int(side["step"]), "rng": side.get("rng")}
 
 
 def _load_jax_training_state(model: torch.nn.Module, optimizer, sidecar_path) -> dict:
     """A resume from the JAX package's sidecar, as its ``load_into_state(...,
     full_restore=True)`` restores one (``checkpoint.py:238-305``):
-    parameters, BatchNorm statistics, MMTM buffers, the controller's fields
-    but its PRNG key, the step, the learning rate into every param group and
-    optax's momentum trace into SGD's ``momentum_buffer``.  The PRNG keys
-    are dropped: the port draws from (``train.seed``, step).  An entry the
-    model lacks, or a momentum setting that disagrees with the run's
-    optimizer state, raises."""
+    parameters, BatchNorm statistics, MMTM buffers, the controller state
+    with its PRNG key, the step, the data key, the learning rate into every
+    param group and optax's momentum trace into SGD's ``momentum_buffer``.
+    An entry the model lacks, or a momentum setting that disagrees with the
+    run's optimizer state, raises."""
     side = read_jax_sidecar(sidecar_path)
     _, unexpected = model.load_state_dict(_sidecar_state_dict(side), strict=False)
     if unexpected:
@@ -320,14 +325,13 @@ def _load_jax_training_state(model: torch.nn.Module, optimizer, sidecar_path) ->
     ctrl = side["controller"]
     like = init_controller_state(len(np.asarray(ctrl["M_main"]))).as_dict()
     controller = {f.name: torch.from_numpy(np.array(ctrl[f.name], copy=True)).to(like[f.name].dtype)
-                  for f in dataclasses.fields(ControllerState)}
-    logger.info("%s: the controller's and the state's PRNG keys are dropped; the port's draws come from "
-                "(train.seed, step)", sidecar_path)
+                  for f in dataclasses.fields(ControllerState) if f.name in ctrl}
     if optimizer is not None:
         _restore_optimizer(model, optimizer, side, sidecar_path)
     step = int(np.asarray(side["step"]))
     logger.info("Restored %s (step %d)", sidecar_path, step)
-    return {"controller": controller, "step": step}
+    data_key = side.get("rng")
+    return {"controller": controller, "step": step, "rng": None if data_key is None else key_tensor(np.asarray(data_key))}
 
 
 def _restore_optimizer(model, optimizer, side, sidecar_path):

@@ -3,32 +3,47 @@
 weakest and adaptive-weakest.
 
 Each decision is a pure function of (previous state, this step's BDR sums,
-unlock), and for the random controller this step's draw: no ``.item()``
-and no host branch on a device value, so the host never waits for the
-step.  The decision made at step t applies to the forward of step t+1.
+unlock): no ``.item()`` and no host branch on a device value, so the host
+never waits for the step.  The decision made at step t applies to the
+forward of step t+1.
 
-The random controller's draw for step t comes from a generator on the
-device reseeded from (seed, t) (:func:`random_draw`), as the train flips
-are; the JAX package carries a PRNG key instead, so the two packages' draws
-agree only in distribution.  A resumed run draws what a straight run draws.
+The state carries the JAX package's PRNG key (``controller.py:39-58``), on
+the host: the random controller splits it each step and draws
+``randint(sub, (), 0, N + 1)`` there (:mod:`..utils.prng`), so its
+decisions are the JAX package's for the same seed, and a checkpoint that
+holds the key continues them.  The other controllers never move the key.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass, fields
+from dataclasses import dataclass, field, fields
 
+import numpy as np
 import torch
 
+from ..utils import prng
 
-# Keeps the random controller's seeds apart from the train flips' (seed *
-# 1_000_003 + step, Trainer.train_flips): the two streams never share a seed.
-DRAW_STREAM = 1 << 62
+
+def key_tensor(key) -> torch.Tensor:
+    """A PRNG key (a (2,) uint32 key, or a tensor or array of its two
+    words) as the (2,) int64 CPU tensor the state and the checkpoints hold."""
+    if isinstance(key, torch.Tensor):
+        if key.device.type == "cpu" and key.dtype == torch.int64 and key.shape == (2,):
+            return key
+        key = key.detach().cpu().to(torch.int64).numpy()
+    return torch.from_numpy(np.asarray(key).astype(np.int64).reshape(2))
+
+
+def key_array(key: torch.Tensor) -> np.ndarray:
+    """:func:`key_tensor`'s inverse: the (2,) uint32 key."""
+    return np.asarray(key.numpy(), np.int64).astype(np.uint32)
 
 
 @dataclass
 class ControllerState:
-    """``controller.py:39-47`` without the PRNG key: the random controller's
-    draw is a function of (seed, step) instead."""
+    """``controller.py:39-47``; ``rng`` is the PRNG key, a (2,) int64 CPU
+    tensor of its two uint32 words (:func:`key_tensor`), kept on the host
+    whatever device the other fields live on."""
 
     M_main: torch.Tensor  # (N,) float32: accumulated sum|g|^2 / sum|w|^2, main branches
     M_bypass: torch.Tensor  # (N,) float32, MMTM bypass
@@ -36,12 +51,18 @@ class ControllerState:
     caring_modality: torch.Tensor  # () int32
     curation_step: torch.Tensor  # () int32
     d_BDR: torch.Tensor  # () float32
+    rng: torch.Tensor = field(default_factory=lambda: key_tensor(prng.PRNGKey(0)))
+
+    def __post_init__(self):
+        self.rng = key_tensor(self.rng)
 
     def as_dict(self):
         return {f.name: getattr(self, f.name) for f in fields(self)}
 
 
-def init_controller_state(num_modalities: int = 2, device="cpu") -> ControllerState:
+def init_controller_state(num_modalities: int = 2, device="cpu", seed: int = 0) -> ControllerState:
+    """A fresh state on ``device`` whose key is ``PRNGKey(seed)``
+    (``controller.py:50-59``)."""
     return ControllerState(
         M_main=torch.zeros(num_modalities, dtype=torch.float32, device=device),
         M_bypass=torch.zeros(num_modalities, dtype=torch.float32, device=device),
@@ -49,6 +70,7 @@ def init_controller_state(num_modalities: int = 2, device="cpu") -> ControllerSt
         caring_modality=torch.zeros((), dtype=torch.int32, device=device),
         curation_step=torch.zeros((), dtype=torch.int32, device=device),
         d_BDR=torch.zeros((), dtype=torch.float32, device=device),
+        rng=key_tensor(prng.PRNGKey(seed)),
     )
 
 
@@ -92,6 +114,7 @@ def guided_update(
         caring_modality=torch.where(enter, candidate, torch.where(counting, state.caring_modality, zero)),
         curation_step=torch.where(enter, zero, torch.where(counting, next_count, state.curation_step)),
         d_BDR=new_d,
+        rng=state.rng,
     )
 
 
@@ -131,6 +154,7 @@ def weakest_update(
         caring_modality=target,
         curation_step=torch.where(unlock, state.curation_step + 1, state.curation_step),
         d_BDR=_bdr_deviation(M_main, M_bypass),
+        rng=state.rng,
     )
 
 
@@ -167,15 +191,16 @@ def adaptive_weakest_update(
         curation_step=torch.where(enter, torch.zeros_like(next_count),
                                   torch.where(counting, next_count, state.curation_step)),
         d_BDR=new_d,
+        rng=state.rng,
     )
 
 
-def random_draw(generator: torch.Generator, seed: int, step: int, num_modalities: int) -> torch.Tensor:
-    """The random controller's draw for ``step``: a () int64 uniform over
-    {0, ..., N} on the generator's device, from ``generator`` reseeded by
-    (seed, step)."""
-    generator.manual_seed(DRAW_STREAM + seed * 1_000_003 + step)
-    return torch.randint(0, num_modalities + 1, (), generator=generator, device=generator.device)
+def random_draw(key, num_modalities: int):
+    """(the next key, this step's draw): ``split(key)``, then
+    ``randint(sub, (), 0, N + 1)`` from the second half
+    (``controller.py:260-261``), on the host."""
+    nxt, sub = prng.split(key)
+    return nxt, int(prng.randint(sub, (), 0, num_modalities + 1))
 
 
 def random_update(
@@ -183,29 +208,40 @@ def random_update(
     gn: torch.Tensor,
     wn: torch.Tensor,
     unlock: torch.Tensor,
-    mode: torch.Tensor,
     *,
     num_modalities: int = 2,
 ) -> ControllerState:
-    """``controller.py:249-276``, with the step's draw ``mode`` (uniform over
-    {0, ..., N}) given: 0 turns curation off, any other value curates, with
-    the reference's mapping for two modalities (mode 1 cares for modality
-    1, mode 2 for modality 0) and modality ``mode - 1`` for more.  The BDR
-    sums, ``curation_step`` and ``d_BDR`` are left as they are."""
-    curation = unlock & (mode != 0)
+    """``controller.py:249-276``: the step's draw (:func:`random_draw` of
+    the carried key; the state keeps the next key) is uniform over
+    {0, ..., N}; 0 turns curation off, any other value curates, with the
+    reference's mapping for two modalities (mode 1 cares for modality 1,
+    mode 2 for modality 0) and modality ``mode - 1`` for more.  The draw is
+    a host int, so the device sees it only through a fill; the BDR sums,
+    ``curation_step`` and ``d_BDR`` are left as they are."""
+    nxt, mode = random_draw(key_array(state.rng), num_modalities)
     if num_modalities == 2:
-        caring = torch.where(mode == 1, 1, 0)
+        caring = 1 if mode == 1 else 0
     else:
-        caring = (mode - 1).clamp(min=0)
-    caring = caring.to(state.caring_modality.dtype)
+        caring = max(mode - 1, 0)
+    curation = unlock & (mode != 0)
     return ControllerState(
         M_main=state.M_main,
         M_bypass=state.M_bypass,
         curation_mode=curation,
-        caring_modality=torch.where(curation, caring, torch.zeros_like(caring)),
+        caring_modality=torch.where(curation, caring, 0).to(state.caring_modality.dtype),
         curation_step=state.curation_step,
         d_BDR=state.d_BDR,
+        rng=key_tensor(nxt),
     )
+
+
+def controller_key(seed: int, kind: str, steps: int) -> np.ndarray:
+    """The controller's key after ``steps`` train steps of a run of
+    ``kind`` from ``PRNGKey(seed)``, for a checkpoint that does not hold it:
+    the random controller's moves one split a step, the others' never
+    moves.  Exact only when the run kept one controller kind."""
+    key = prng.PRNGKey(seed)
+    return prng.key_chain(key, steps) if kind == "random" else key
 
 
 def null_update(state: ControllerState, gn, wn, unlock) -> ControllerState:
@@ -217,4 +253,5 @@ def null_update(state: ControllerState, gn, wn, unlock) -> ControllerState:
         caring_modality=torch.zeros_like(state.caring_modality),
         curation_step=state.curation_step,
         d_BDR=state.d_BDR,
+        rng=state.rng,
     )

@@ -57,12 +57,13 @@ from ..data.transforms import draw_flips, flip_shape, preprocess
 from ..parallel import mesh as parallel
 from ..parallel import tensor as tensor_parallel
 from ..parallel.multihost import is_main_process
+from ..utils import prng
 from .bdr import GroupReducer
 from .callbacks import CallbackList, ProgressionCallback, ValidationProgressionCallback
-from .controller import ControllerState, init_controller_state, random_draw
+from .controller import ControllerState, controller_key, init_controller_state, key_array, key_tensor
 from .fold_bn import fold_batchnorm
 from .steps import RECORD_KEYS, eval_step, make_controller_update, train_step
-from .train_state import get_learning_rate, set_learning_rate
+from .train_state import get_learning_rate, set_learning_rate, train_keys
 
 logger = logging.getLogger(__name__)
 
@@ -184,13 +185,15 @@ class Trainer:
         self.stop_training = False
         self.controller_kind = controller_kind
         self.controller_config = controller_config or {}
-        self.ctrl = init_controller_state(nummodalities, self.device)
+        self._seed = int(seed)
+        # the JAX package's keys of train.seed: the controller's
+        # (``controller.py:58``, carried in the state) and the data key the
+        # train flips fold the step into (``train_state.py:57``)
+        self.ctrl = init_controller_state(nummodalities, self.device, self._seed)
+        self.data_key = train_keys(self._seed)[1]
         self._unlock = False
         self.step = 0
         self.curated_steps = 0
-        self._seed = int(seed)
-        self._flip_gen = torch.Generator(device=self.device)
-        self._draw_gen = torch.Generator(device=self.device)
         self.mmtm_off = bool(mmtm_off)
         self.average_squeezemaps = _device_maps(average_squeezemaps, self.device)
         if self.mmtm_off and self.average_squeezemaps is None:
@@ -200,6 +203,7 @@ class Trainer:
         self.rescale_accumulator = None
         self.fold_bn_eval = bool(fold_bn_eval)
         self.profile_dir = None  # enable_profiling: the next train epoch's trace goes here
+        self.snapshots = None  # training_loop's engine.snapshots.Snapshots under orbax_dir
         self._skip_next_controller_reset = False
         if optimizer is None:
             return
@@ -216,7 +220,7 @@ class Trainer:
                 "check branchnames/mmtm_names against the parameter names"
             )
         self._controller_update = make_controller_update(
-            controller_kind, nummodalities, draw=self.controller_draw,
+            controller_kind, nummodalities,
             **{k: v for k, v in self.controller_config.items() if k in ("epsilon", "curation_windowsize", "duty_period")},
         )
 
@@ -232,7 +236,8 @@ class Trainer:
             # a resume has just restored the controller from the sidecar
             self._skip_next_controller_reset = False
             return
-        self.ctrl = init_controller_state(self.nummodalities, self.device)
+        # the carried key survives the reset (``framework.py:180-186``)
+        self.ctrl = dataclasses.replace(init_controller_state(self.nummodalities, self.device), rng=self.ctrl.rng)
         self._unlock = False
 
     def unlock_controller(self):
@@ -244,11 +249,6 @@ class Trainer:
         unconditional: reading the flag first would wait for the step."""
         self.ctrl = dataclasses.replace(self.ctrl, caring_modality=torch.full(
             (), int(modality), dtype=self.ctrl.caring_modality.dtype, device=self.device))
-
-    def controller_draw(self) -> torch.Tensor:
-        """The random controller's draw for the current step, a function of
-        (seed, step) drawn on the device."""
-        return random_draw(self._draw_gen, self._seed, self.step, self.nummodalities)
 
     def get_lr(self):
         return get_learning_rate(self.optimizer)
@@ -263,7 +263,7 @@ class Trainer:
         with tensor_parallel.unsharded(self.model, self.optimizer):
             if is_main_process():
                 ckpt.save_weights(self.model, filepath, optimizer=self.optimizer, controller=self.ctrl.as_dict(),
-                                  step=self.step)
+                                  step=self.step, rng=key_tensor(self.data_key))
         if self.world is not None:
             parallel.barrier(self.device)
 
@@ -295,13 +295,32 @@ class Trainer:
         """Resume from ``filepath`` and its sidecar, the port's ``.torch.pt``
         or the JAX package's ``.jax.pkl``
         (:func:`~.checkpoint.load_training_state`): parameters, BatchNorm
-        statistics, MMTM buffers, optimizer state, controller state and
-        step; the next train-begin controller reset is skipped
-        (``framework.py:174-179``)."""
+        statistics, MMTM buffers, optimizer state, controller state with
+        its key, step and data key; the next train-begin controller reset
+        is skipped (``framework.py:174-179``)."""
         with tensor_parallel.unsharded(self.model, self.optimizer):
             state = ckpt.load_training_state(self.model, self.optimizer, filepath)
-        self.ctrl = ControllerState(**{k: v.to(self.device) for k, v in state["controller"].items()})
-        self.step = int(state["step"])
+        self.set_run_state(state["controller"], state["step"], state.get("rng"), filepath)
+
+    def set_run_state(self, controller: dict, step: int, data_key=None, source="the checkpoint"):
+        """The controller state (a dict of its fields), the step and the data
+        key of a resume; the next train-begin controller reset is skipped.
+        A state written before the port carried the keys holds neither: the
+        data key is then the seed's, the controller's key the one a run of
+        this trainer's controller kind reaches after ``step`` steps
+        (:func:`~.controller.controller_key`, exact when the run kept one
+        controller kind)."""
+        self.step = int(step)
+        controller = dict(controller)
+        if controller.get("rng") is None:
+            controller["rng"] = controller_key(self._seed, self.controller_kind, self.step)
+            logger.info("%s holds no controller key: re-derived from train.seed=%d for a %s controller at step %d",
+                        source, self._seed, self.controller_kind, self.step)
+        if data_key is None:
+            data_key = train_keys(self._seed)[1]
+            logger.info("%s holds no data key: re-derived from train.seed=%d", source, self._seed)
+        self.ctrl = ControllerState(**{k: v if k == "rng" else v.to(self.device) for k, v in controller.items()})
+        self.data_key = key_array(key_tensor(data_key))
         self._skip_next_controller_reset = True
 
     # --- epoch loops ---
@@ -319,17 +338,21 @@ class Trainer:
 
     def train_flips(self, *shape: int) -> torch.Tensor:
         """The flips of the next train step, of ``shape`` ((B, V) for image
-        stacks, (B,) for clips: :func:`~..data.transforms.flip_shape`), a
-        function of (seed, step) drawn on the device.  Under data
-        parallelism ``shape`` is the rank's block: the global batch's flips
-        are drawn and the rank takes its data index's rows, as the ranks of
-        its model group do."""
-        self._flip_gen.manual_seed(self._seed * 1_000_003 + self.step)
+        stacks, (B,) for clips: :func:`~..data.transforms.flip_shape`): the
+        JAX package's ``bernoulli(fold_in(data_key, step), 0.5, shape)``
+        (``steps.py:88``), drawn on the host and copied to the device without
+        a wait.  Under data parallelism ``shape`` is the rank's block: the
+        global batch's flips are drawn and the rank takes its data index's
+        rows, as the ranks of its model group do."""
+        key = prng.fold_in(self.data_key, self.step)
         if self.world is None:
-            return draw_flips(shape, self._flip_gen)
-        b, d = shape[0], self.world.data_index
-        flips = draw_flips((b * self.world.data_size,) + tuple(shape[1:]), self._flip_gen)
-        return flips[d * b:(d + 1) * b]
+            flips = draw_flips(shape, key)
+        else:
+            b, d = shape[0], self.world.data_index
+            flips = draw_flips((b * self.world.data_size,) + tuple(shape[1:]), key)[d * b:(d + 1) * b]
+        if self.device.type == "cuda":
+            flips = flips.pin_memory()  # a copy from pageable memory would wait
+        return flips.to(self.device, non_blocking=True)
 
     def train_batch(self, data, flips, unlock) -> dict:
         """One train step on a batch of device tensors with its

@@ -29,8 +29,16 @@ reads them on ``resume``.  ``model_parallel`` > 1 splits the wide weights
 over model groups of that many ranks beside the data groups
 (:mod:`..parallel.tensor`); without ``data_parallel`` it is ignored, as
 the JAX package builds its mesh only under ``data_parallel``
-(``loop.py:174-179,326-331``).  ``orbax_dir`` (Orbax snapshots) is not
-ported and raises: the checkpoint's sidecar holds the whole training state.
+(``loop.py:174-179,326-331``).
+
+``orbax_dir`` (under ``save_path`` when relative) takes an asynchronous
+full-state snapshot at every epoch's end and keeps the newest
+``orbax_max_to_keep`` (:class:`~.snapshots.Snapshots`, over
+``torch.distributed.checkpoint``; ``loop.py:211-226,283-284``); on
+``resume`` the newest snapshot supersedes the ``.pt`` sidecar, and a
+fresh run removes the directory's old snapshots as it removes the stale
+history.  The loop waits for the last save before it returns, an
+exception included.
 """
 
 from __future__ import annotations
@@ -52,6 +60,7 @@ from ..data.pipeline import adopt_world
 from .callbacks import LambdaCallback, ModelCheckpoint
 from .framework import Trainer
 from .history import append_to_history, save_history
+from .snapshots import Snapshots
 
 logger = logging.getLogger(__name__)
 
@@ -131,13 +140,19 @@ def _load_history(save_path) -> dict:
     return {name: [_csv_value(r[i]) for r in rows[1:]] for i, name in enumerate(rows[0])}
 
 
-def _resume(trainer, H, callbacks, last_ckpt, steps_per_epoch, checkpoint_monitor) -> int:
-    """Restore the trainer from ``last_ckpt``, cut the history back to the
-    checkpoint's epoch (with ``checkpoint_every`` > 1 it can be older than
-    the history), set the best-val checkpoint's ``best`` and replay the
-    history into the callbacks that keep state.  Returns the epoch to
-    continue at."""
+def _resume(trainer, H, callbacks, last_ckpt, steps_per_epoch, checkpoint_monitor, snapshots=None) -> int:
+    """Restore the trainer from ``last_ckpt``, then from the newest snapshot
+    when ``snapshots`` holds one (it supersedes the sidecar: it is taken
+    every epoch, the checkpoint every ``checkpoint_every``), cut the
+    history back to the restored epoch (with ``checkpoint_every`` > 1 it
+    can be older than the history), set the best-val checkpoint's ``best``
+    and replay the history into the callbacks that keep state.  Returns the
+    epoch to continue at."""
     trainer.restore(last_ckpt)
+    if snapshots is not None:
+        epoch = snapshots.restore_latest(trainer)
+        if epoch is not None:
+            logger.info("Restored the snapshot of epoch %d from %s", epoch, snapshots.directory)
     ckpt_epoch = trainer.step // max(int(steps_per_epoch), 1)
     if H.get("epoch") and ckpt_epoch < int(H["epoch"][-1]):
         logger.info("Checkpoint is at epoch %d, the history at %d: truncating the history to the checkpoint",
@@ -179,6 +194,7 @@ def training_loop(
     data_parallel=False,
     model_parallel=1,
     orbax_dir=None,
+    orbax_max_to_keep=2,
     checkpoint_every=1,
     fold_bn_eval=False,
     device="cuda",
@@ -189,12 +205,6 @@ def training_loop(
     the gin surface and ignored.  ``resume`` continues from
     ``model_last_epoch.pt`` when it and ``history.csv`` exist, and starts
     fresh otherwise."""
-    if orbax_dir:
-        raise NotImplementedError(
-            "training_loop.orbax_dir writes Orbax, a JAX library's format, and is not ported: the port's "
-            "model_last_epoch.pt with its .torch.pt sidecar holds the whole training state "
-            "(training_loop.checkpoint_every spaces it; see ROADMAP.md)"
-        )
     with _data_parallel_world(data_parallel, device, model_parallel) as world:
         callbacks = list(custom_callbacks)
         os.makedirs(save_path, exist_ok=True)
@@ -250,25 +260,39 @@ def training_loop(
             clbk.set_config(config)
             clbk.set_model_pytoune(trainer)
 
-        initial_epoch = 1
-        if resuming:
-            initial_epoch = _resume(trainer, H, callbacks, last_ckpt, steps_per_epoch, checkpoint_monitor)
-        every = max(int(checkpoint_every), 1)
-        callbacks.append(LambdaCallback(
-            on_epoch_end=lambda epoch, logs: trainer.save_weights(last_ckpt) if epoch % every == 0 else None
-        ))
+        snapshots = None
+        if orbax_dir:
+            snapshots = Snapshots(orbax_dir if os.path.isabs(orbax_dir) else os.path.join(save_path, orbax_dir),
+                                  max_to_keep=int(orbax_max_to_keep), world=world)
+            trainer.snapshots = snapshots
+            if not resuming:
+                snapshots.clear()  # as the stale history, a fresh run's old snapshots go
+        try:
+            initial_epoch = 1
+            if resuming:
+                initial_epoch = _resume(trainer, H, callbacks, last_ckpt, steps_per_epoch, checkpoint_monitor,
+                                        snapshots)
+            if snapshots is not None:
+                callbacks.append(LambdaCallback(on_epoch_end=lambda epoch, logs: snapshots.save(epoch, trainer)))
+            every = max(int(checkpoint_every), 1)
+            callbacks.append(LambdaCallback(
+                on_epoch_end=lambda epoch, logs: trainer.save_weights(last_ckpt) if epoch % every == 0 else None
+            ))
 
-        trainer.train_loop(
-            train,
-            valid_generator=valid,
-            test_generator=test,
-            test_steps=test_steps,
-            validation_steps=validation_steps,
-            steps_per_epoch=steps_per_epoch,
-            epochs=n_epochs - 1,  # quirk #3 (reference: src/training_loop.py:141)
-            callbacks=callbacks,
-            initial_epoch=initial_epoch,
-        )
+            trainer.train_loop(
+                train,
+                valid_generator=valid,
+                test_generator=test,
+                test_steps=test_steps,
+                validation_steps=validation_steps,
+                steps_per_epoch=steps_per_epoch,
+                epochs=n_epochs - 1,  # quirk #3 (reference: src/training_loop.py:141)
+                callbacks=callbacks,
+                initial_epoch=initial_epoch,
+            )
+        finally:
+            if snapshots is not None:
+                snapshots.close()
         return trainer
 
 

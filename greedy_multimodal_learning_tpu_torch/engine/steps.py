@@ -37,7 +37,7 @@ rows over the model group.
 from __future__ import annotations
 
 import functools
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict
 
 import torch
 
@@ -59,17 +59,14 @@ from .metrics import blend_and_per_view_acc, blend_loss, valid_count
 RECORD_KEYS = ("mmtmscales_list", "squeezedmaps_array_list")
 
 
-def make_controller_update(kind: str, num_modalities: int, *, draw: Optional[Callable[[], torch.Tensor]] = None,
-                           **kwargs) -> Callable:
+def make_controller_update(kind: str, num_modalities: int, **kwargs) -> Callable:
     """The controller's t -> t+1 update ``(state, gn, wn, unlock) -> state``
-    for ``kind`` (``steps.py:43-65``); ``draw`` gives the random
-    controller its step's draw.  Any other kind keeps curation off."""
+    for ``kind`` (``steps.py:43-65``).  Any other kind keeps curation off."""
     if kind == "guided":
         return functools.partial(guided_update, epsilon=kwargs["epsilon"],
                                  curation_windowsize=kwargs["curation_windowsize"])
     if kind == "random":
-        return lambda state, gn, wn, unlock: random_update(state, gn, wn, unlock, draw(),
-                                                          num_modalities=num_modalities)
+        return functools.partial(random_update, num_modalities=num_modalities)
     if kind == "weakest":
         return functools.partial(weakest_update, curation_windowsize=kwargs["curation_windowsize"],
                                  duty_period=kwargs["duty_period"])

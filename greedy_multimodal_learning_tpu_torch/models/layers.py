@@ -26,9 +26,12 @@ column-parallel over the model group (:mod:`..parallel.tensor`).
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
+import re
 import threading
 
+import numpy as np
 import torch
 import torch.utils.checkpoint
 import torch.nn.functional as F
@@ -36,6 +39,7 @@ from torch import nn
 
 from ..parallel import mesh as parallel
 from ..parallel import tensor as tensor_parallel
+from ..utils import prng
 
 
 class Conv2d(nn.Conv2d):
@@ -169,19 +173,135 @@ class BatchNorm3d(_MaskedBatchNorm, nn.BatchNorm3d):
     """The masked BatchNorm on (B, C, T, H, W) maps."""
 
 
+def jax_param_path(name: str, norm: bool = False) -> tuple:
+    """The JAX package's parameter path for the port's parameter ``name``
+    (the inverse of ``engine/checkpoint.py::state_dict_from_jax``'s names):
+    ``layerN.k`` is ``layerN_k``, ``downsample.0`` / ``.1`` are
+    ``downsample_conv`` / ``downsample_bn``; the leaf ``weight`` is flax's
+    ``scale`` for a BatchNorm (``norm``) and its ``kernel`` otherwise."""
+    parts = name.split(".")
+    out, i = [], 0
+    while i < len(parts) - 1:
+        p, nxt = parts[i], parts[i + 1]
+        if re.fullmatch(r"layer\d", p) and nxt.isdigit():
+            out.append(f"{p}_{nxt}")
+            i += 2
+        elif p == "downsample" and nxt in ("0", "1"):
+            out.append("downsample_conv" if nxt == "0" else "downsample_bn")
+            i += 2
+        else:
+            out.append(p)
+            i += 1
+    leaf = parts[-1]
+    if leaf == "weight":
+        leaf = "scale" if norm else "kernel"
+    return tuple(out) + (leaf,)
+
+
+# flax's make_rng counter of a parameter within its module's scope: the
+# order the JAX module creates its parameters (TorchLinear kernel then bias,
+# TorchBatchNorm scale then bias, a convolution its kernel).
+_PARAM_ORDER = {"kernel": 1, "scale": 1, "bias": 2}
+
+
+def _layout(module: nn.Module) -> tuple:
+    """What the draws of ``module``'s parameters depend on: (name, the
+    owner's kind, the shape in the JAX layout ((*kernel, I, O) convolutions,
+    (in, out) linears), the owner's fan-in) of each parameter."""
+    out = []
+    for name, param in module.named_parameters():
+        owner = module.get_submodule(name.rpartition(".")[0])
+        if isinstance(owner, (nn.BatchNorm2d, nn.BatchNorm3d)):
+            kind = "norm"
+        elif isinstance(owner, (nn.Conv2d, nn.Conv3d)):
+            kind = "conv"
+        elif isinstance(owner, nn.Linear):
+            kind = "linear"
+        else:
+            raise TypeError(f"no JAX initializer for {name} of {type(owner).__name__}")
+        shape = tuple(param.shape)
+        if param.dim() >= 3:  # (O, I, *kernel) -> (*kernel, I, O)
+            shape = shape[2:] + (shape[1], shape[0])
+        elif param.dim() == 2:
+            shape = shape[::-1]
+        out.append((name, kind, shape, getattr(owner, "in_features", None)))
+    return tuple(out)
+
+
+def _draw_tree(key, layout: tuple) -> dict:
+    leaves, requests, scales = [], [], []
+    for name, kind, shape, fan_in in layout:
+        path = jax_param_path(name, kind == "norm")
+        leaf_key = prng.fold_in_static(key, path[:-1] + (_PARAM_ORDER[path[-1]],))
+        if kind == "norm":
+            leaves.append((path, (np.ones if path[-1] == "scale" else np.zeros)(shape, np.float32)))
+            continue
+        if kind == "conv":
+            # variance_scaling(2, "fan_out", "normal"): the variance rounded
+            # to float32, its float32 square root times a standard normal
+            requests.append(("normal", leaf_key, shape))
+            scales.append(np.sqrt(np.float32(2.0 / (shape[-1] * math.prod(shape[:-2])))))
+        elif path[-1] == "kernel":  # a linear's: 1 / jnp.sqrt(fan_in), in float32
+            bound = np.float32(1.0) / np.sqrt(np.float32(fan_in))
+            requests.append(("uniform", leaf_key, shape, -bound, bound))
+            scales.append(None)
+        else:  # its bias: 1 / float(fan_in) ** 0.5 in Python, rounded by uniform
+            bound = 1.0 / float(fan_in) ** 0.5
+            requests.append(("uniform", leaf_key, shape, -bound, bound))
+            scales.append(None)
+        leaves.append((path, len(requests) - 1))
+    drawn = prng.draw(requests)
+    tree = {}
+    for path, value in leaves:
+        if isinstance(value, int):
+            value = drawn[value] if scales[value] is None else drawn[value] * scales[value]
+        node = tree
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = value
+    return tree
+
+
+def jax_init_tree(module: nn.Module, key) -> dict:
+    """Every parameter of ``module`` as flax's ``init`` draws it under the
+    key ``key``, with the JAX package's initializers
+    (``models/layers.py:25-46,85-86`` there): the parameter at scope path
+    ``p`` with flax's counter ``c`` takes ``fold_in_static(key, p + (c,))``
+    (``flax/core/scope.py``, ``make_rng``), in the JAX layout ((*kernel, I,
+    O) convolutions, (in, out) linears).  Returns the nested params tree,
+    named as the JAX package names it.  The draws are made together
+    (:func:`~..utils.prng.draw`)."""
+    return _draw_tree(key, _layout(module))
+
+
+@functools.lru_cache(maxsize=2)
+def _initial_state(key_words: tuple, layout: tuple) -> dict:
+    """The port's state_dict of :func:`_draw_tree`, kept for the last two
+    (key, layout) pairs: the draws are a function of those alone, and each
+    entry run again in one process (``run_api``, the tests, the smoke run)
+    would make them again.  Read only; callers copy out of it."""
+    from ..engine.checkpoint import state_dict_from_jax
+
+    return state_dict_from_jax(_draw_tree(np.array(key_words, np.uint32), layout), {})
+
+
 @torch.no_grad()
-def init_parameters(module: nn.Module, generator: torch.Generator):
-    """Seeded initialization with the JAX package's initializers: kaiming
-    normal fan-out for 2-D and 3-D convolutions (on an (O, I, *kernel)
-    weight the variance of flax's ``variance_scaling(2, "fan_out")`` on its
-    (*kernel, I, O) kernel), torch's default U(±1/sqrt(fan_in)) for linear
-    weights and biases, ones/zeros for BatchNorm."""
+def init_parameters(module: nn.Module, key) -> None:
+    """The JAX package's initialization of ``module`` under the flax key
+    ``key`` (a (2,) uint32 key, :mod:`..utils.prng`): each parameter drawn
+    by :func:`jax_init_tree` on the host (so a key gives the same weights on
+    every device), turned into the port's layout by the checkpoint name map
+    (``engine/checkpoint.py::state_dict_from_jax``); BatchNorm statistics
+    start at zero mean and unit variance, the MMTM buffers at zero."""
+    state = _initial_state(tuple(int(w) for w in np.asarray(key, np.uint32)), _layout(module))
+    own = dict(module.named_parameters())
+    if set(state) != set(own):
+        raise KeyError(f"the JAX names do not map back onto the parameters: {sorted(set(state) ^ set(own))[:5]}")
+    for name, value in state.items():
+        own[name].copy_(value)
     for m in module.modules():
-        if isinstance(m, (nn.Conv2d, nn.Conv3d)):
-            nn.init.kaiming_normal_(m.weight, mode="fan_out", nonlinearity="relu", generator=generator)
-        elif isinstance(m, nn.Linear):
-            bound = 1.0 / math.sqrt(m.in_features)
-            m.weight.uniform_(-bound, bound, generator=generator)
-            m.bias.uniform_(-bound, bound, generator=generator)
-        elif isinstance(m, (nn.BatchNorm2d, nn.BatchNorm3d)):
-            m.reset_parameters()
+        if isinstance(m, (nn.BatchNorm2d, nn.BatchNorm3d)):
+            m.reset_running_stats()
+    for name, buf in module.named_buffers():
+        if ".running_avg_" in f".{name}" or name == "step" or name.endswith(".step"):
+            buf.zero_()

@@ -1,6 +1,6 @@
 """Two checkouts' gating kernels timed in one run on one GPU.
 
-    python3 kernel_ab.py OLD NEW [--profile-training]
+    python3 kernel_ab.py OLD NEW [--profile-training] [--train-entry]
 
 OLD and NEW are roots of checkouts of this repository (for example the
 parent commit unpacked with ``git archive`` into ``_work_parent/``, and
@@ -11,7 +11,10 @@ version with times; 4: the backward) with one timing function for both, so
 the two designs meet the same card, power limit, neighbours and clock.
 With ``--profile-training`` it then runs each checkout's
 ``profile_training`` (step time, device busy share and the in-step gating
-ms, warm L2), also in turns OLD, NEW, NEW, OLD.  Prints
+ms, warm L2), also in turns OLD, NEW, NEW, OLD.  With ``--train-entry`` it
+then runs each checkout's ``chip_smoke.py`` phase 5 (the guided ``train``
+entry on its synthetic 224² split, f32 and bf16, kernels: samples/s per
+epoch), in the same turns.  Prints
 one JSON object per run and a summary, and writes everything to
 ``chiprun_out/kernel_ab.json``.  Needs a CUDA device.
 """
@@ -58,6 +61,22 @@ for key, phase in (("fwd", cs.kernel_phase), ("bwd", cs.backward_kernel_phase)):
 print("KERNEL_AB " + json.dumps(out))
 """
 
+# Runs in the checkout under test: its chip_smoke.py phase 5.
+TRAIN = r"""
+import json, shutil, sys, torch
+sys.path.insert(0, ".")
+import chip_smoke as cs
+cs.kernel_build.build(["mmtm_gating", "mmtm_gating_bwd"])
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+try:
+    out = cs.training_phase()
+finally:
+    shutil.rmtree(cs.TRAIN_DATA, ignore_errors=True)
+    shutil.rmtree(cs.TRAIN_RUNS, ignore_errors=True)
+print("TRAIN_AB " + json.dumps({k: v["train_samples_per_s"] for k, v in out.items()}))
+"""
+
 TIMED = ("ms", "bound_ms", "plain_ms", "eager_ms", "eager_autograd_ms")
 
 
@@ -67,6 +86,14 @@ def run_phases(root):
         raise RuntimeError(f"kernel phases failed in {root}:\n{r.stdout[-4000:]}\n{r.stderr[-4000:]}")
     line = [l for l in r.stdout.splitlines() if l.startswith("KERNEL_AB ")][-1]
     return json.loads(line[len("KERNEL_AB "):])
+
+
+def run_train(root):
+    r = subprocess.run([sys.executable, "-c", TRAIN], cwd=root, capture_output=True, text=True, timeout=1800)
+    if r.returncode != 0:
+        raise RuntimeError(f"phase 5 failed in {root}:\n{r.stdout[-4000:]}\n{r.stderr[-4000:]}")
+    line = [l for l in r.stdout.splitlines() if l.startswith("TRAIN_AB ")][-1]
+    return json.loads(line[len("TRAIN_AB "):])
 
 
 def run_profile(root):
@@ -100,6 +127,7 @@ def main() -> int:
     parser.add_argument("old")
     parser.add_argument("new")
     parser.add_argument("--profile-training", action="store_true")
+    parser.add_argument("--train-entry", action="store_true")
     args = parser.parse_args()
     trees = {"old": os.path.abspath(args.old), "new": os.path.abspath(args.new)}
     runs = []
@@ -117,6 +145,12 @@ def main() -> int:
             for row in rows:
                 brief = {k: v for k, v in row.items() if k != "kernels"}
                 print(json.dumps({"profile_training": tag, **brief}), flush=True)
+    if args.train_entry:
+        result["train_entry"] = []
+        for tag in ("old", "new", "new", "old"):
+            rates = run_train(trees[tag])
+            result["train_entry"].append({"run": tag, "train_samples_per_s": rates})
+            print(json.dumps(result["train_entry"][-1]), flush=True)
     print(json.dumps({"summary": result["summary"]}), flush=True)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "kernel_ab.json"), "w") as f:

@@ -4,18 +4,21 @@ the CPU:
 
 * the three update functions over 40 steps from the same state and the same
   BDR sums, with host-set targets, gates opening and closing, the lock on
-  and off, and (random) the JAX package's own draws fed in: the flags,
-  target and counters exactly, the BDR sums and d_BDR to float32 rounding;
-* the port's own random draws: a function of (seed, step), uniform, and
-  locked before ``starting_epoch``;
+  and off, and (random) the port splitting the key it carries as the JAX
+  package does: the flags, target, counters and key exactly, the BDR sums
+  and d_BDR to float32 rounding;
+* the port's random draws: the JAX package's key chain from the seed,
+  uniform, and locked before ``starting_epoch``;
 * the callbacks' designation, gap, monitor fallback, ``__init__`` errors
   and resume rule (``tests/test_engine.py:237-306`` for the JAX package);
 * the trainer's hooks: the target written on the device, eval passes with
   curation off under the weakest controllers only, the empty-group check;
 * ``configs/training_weakest.gin`` through both packages' ``train`` entries
-  from the same initial weights and flips: the same history;
+  from the seed alone (the port draws the JAX package's initial weights and
+  flips): the same history;
 * a straight run against a resumed one under ``training_random.gin`` and
-  ``training_weakest.gin``: bit-identical, the random draws replayed."""
+  ``training_weakest.gin``: bit-identical, the random draws continued from
+  the key in the sidecar."""
 
 import csv
 import dataclasses
@@ -29,16 +32,13 @@ import jax.numpy as jnp
 import torch
 
 from greedy_multimodal_learning_tpu import config as jax_cfg
-from greedy_multimodal_learning_tpu.bootstrap import build_model_and_loaders as jax_build
-from greedy_multimodal_learning_tpu.bootstrap import init_state as jax_init_state
 from greedy_multimodal_learning_tpu.data.synthetic import make_synthetic_modelnet
 from greedy_multimodal_learning_tpu.engine import controller as jax_ctrl
-from greedy_multimodal_learning_tpu.engine import make_optimizer as jax_make_optimizer
 from greedy_multimodal_learning_tpu.entries import train as jax_train
 from greedy_multimodal_learning_tpu_torch import config as port_cfg
 from greedy_multimodal_learning_tpu_torch import entries as port_entries
 from greedy_multimodal_learning_tpu_torch.data import get_mvdcndata
-from greedy_multimodal_learning_tpu_torch.engine import Trainer, make_optimizer, state_dict_from_jax
+from greedy_multimodal_learning_tpu_torch.engine import Trainer, make_optimizer
 from greedy_multimodal_learning_tpu_torch.engine import controller as port_ctrl
 from greedy_multimodal_learning_tpu_torch.engine.callbacks import (
     Bias_Mitigation_AdaptiveWeakest,
@@ -140,7 +140,7 @@ def test_random_update_matches_jax_with_its_draws(n):
     rng = np.random.default_rng(10 + n)
     jstate = jax_ctrl.init_controller_state(n, seed=123)
     key = jstate.rng
-    pstate = _port_state(jstate)
+    pstate = dataclasses.replace(_port_state(jstate), rng=torch.from_numpy(np.array(jstate.rng)))
     draws = []
     for t in range(STEPS):
         unlock = t >= 5
@@ -150,8 +150,9 @@ def test_random_update_matches_jax_with_its_draws(n):
         gn, wn = _sums(rng, n)
         jstate = jax_ctrl.random_update(jstate, jnp.asarray(gn), jnp.asarray(wn), jnp.asarray(unlock), num_modalities=n)
         pstate = port_ctrl.random_update(pstate, torch.from_numpy(gn), torch.from_numpy(wn), torch.tensor(unlock),
-                                         torch.tensor(mode), num_modalities=n)
+                                         num_modalities=n)
         _assert_same(pstate, jstate, t)
+        np.testing.assert_array_equal(port_ctrl.key_array(pstate.rng), np.asarray(key), err_msg=f"step {t}")
         if unlock and mode:
             want = (1 if mode == 1 else 0) if n == 2 else mode - 1
             assert int(pstate.caring_modality) == want
@@ -159,17 +160,20 @@ def test_random_update_matches_jax_with_its_draws(n):
 
 
 def test_random_draws_are_uniform_locked_and_a_function_of_seed_and_step():
-    gen = torch.Generator()
-    state = port_ctrl.init_controller_state(2)
+    """The state's key after step t is the t-th link of the seed's split
+    chain, so the draw of step t is a function of (seed, t)."""
+    state = port_ctrl.init_controller_state(2, seed=123)
     ones = torch.ones(4)
     for step in range(5):  # locked: always off
-        state = port_ctrl.random_update(state, ones, ones, torch.tensor(False), port_ctrl.random_draw(gen, 123, step, 2))
+        state = port_ctrl.random_update(state, ones, ones, torch.tensor(False))
         assert not bool(state.curation_mode) and int(state.caring_modality) == 0
     modes = []
     for step in range(5, 305):
-        draw = port_ctrl.random_draw(gen, 123, step, 2)
-        assert draw.dtype == torch.int64 and draw.dim() == 0
-        state = port_ctrl.random_update(state, ones, ones, torch.tensor(True), draw)
+        _, draw = port_ctrl.random_draw(port_ctrl.key_array(state.rng), 2)
+        assert isinstance(draw, int) and 0 <= draw <= 2
+        np.testing.assert_array_equal(port_ctrl.key_array(state.rng), port_ctrl.controller_key(123, "random", step))
+        state = port_ctrl.random_update(state, ones, ones, torch.tensor(True))
+        assert bool(state.curation_mode) == (draw != 0)
         modes.append((bool(state.curation_mode), int(state.caring_modality)))
     counts = {
         "off": sum(1 for c, _ in modes if not c),
@@ -177,11 +181,11 @@ def test_random_draws_are_uniform_locked_and_a_function_of_seed_and_step():
         "care1": sum(1 for c, m in modes if c and m == 1),
     }
     assert all(60 < v < 140 for v in counts.values()), counts
-    # the same (seed, step) on another generator: the same draw; another seed: other draws
-    again = [int(port_ctrl.random_draw(torch.Generator(), 123, s, 2)) for s in range(5, 45)]
-    first = [int(port_ctrl.random_draw(gen, 123, s, 2)) for s in range(5, 45)]
-    other = [int(port_ctrl.random_draw(gen, 124, s, 2)) for s in range(5, 45)]
-    assert again == first != other
+    # the same (seed, step): the same draw, again; another seed: other draws
+    def draws(seed):
+        return [port_ctrl.random_draw(port_ctrl.controller_key(seed, "random", s), 2)[1] for s in range(5, 45)]
+
+    assert draws(123) == draws(123) != draws(124)
 
 
 # ---- the callbacks --------------------------------------------------------------
@@ -372,33 +376,18 @@ def _port_train(config, root, save, *extra):
     return trainer, log.steps
 
 
-def test_training_weakest_history_matches_jax(root, tmp_path, monkeypatch):
+def test_training_weakest_history_matches_jax(root, tmp_path):
     """``configs/training_weakest.gin`` (unlocked from epoch 1, 5-of-10 duty
-    cycle) through both ``train`` entries, two epochs: the port starts from
-    the JAX package's initial weights and takes its flips, so the history
-    (the per-modality validation accuracies the designation reads
-    included) agrees; the target designated after epoch 1 is curated in
-    epoch 2."""
+    cycle) through both ``train`` entries, two epochs, from the seed alone:
+    the port draws the JAX package's initial weights and flips itself, so
+    the history (the per-modality validation accuracies the designation
+    reads included) agrees; the target designated after epoch 1 is curated
+    in epoch 2."""
     bindings = _bindings(root, f"train.lr={LR}", "training_loop.n_epochs=3")
     config = os.path.join(REPO, "configs", "training_weakest.gin")
     jax_cfg.parse_config_files_and_bindings([config], "\n".join(bindings))
     jax_train(str(tmp_path / "jax"))
-    model, (train_loader, _, _) = jax_build("MMTM_MVCNN", 4)
-    state = jax_init_state(model, train_loader, 4, 777, optimizer=jax_make_optimizer(lr=LR))
     jax_cfg.clear_config()
-
-    initial = state_dict_from_jax(state.params, state.batch_stats, state.mmtm)
-
-    def jax_weights(net, seed, device):
-        net.load_state_dict(initial, strict=False)
-        return net.to(device=device, memory_format=torch.channels_last).eval()
-
-    def jax_flips(trainer, batch, views):
-        key = jax.random.fold_in(state.rng, trainer.step)  # steps.py:88
-        return torch.from_numpy(np.array(jax.random.bernoulli(key, 0.5, (batch, views))))
-
-    monkeypatch.setattr(port_entries, "init_model", jax_weights)
-    monkeypatch.setattr(Trainer, "train_flips", jax_flips)
     trainer, steps = _port_train("training_weakest.gin", root, tmp_path / "port", f"train.lr={LR}",
                                  "training_loop.n_epochs=3")
     j_cols, j_rows = _history(tmp_path / "jax")
@@ -422,10 +411,11 @@ def test_training_weakest_history_matches_jax(root, tmp_path, monkeypatch):
 
 
 def _expected_random(seed, steps, starting_step):
-    gen = torch.Generator()
+    """The JAX package's decisions: step t draws from the t-th link of the
+    seed's key chain (``controller.py:260-268``)."""
     out = []
     for t in steps:
-        mode = int(port_ctrl.random_draw(gen, seed, t, 2))
+        _, mode = port_ctrl.random_draw(port_ctrl.controller_key(seed, "random", t), 2)
         on = t >= starting_step and mode != 0
         out.append((on, (1 if mode == 1 else 0) if on else 0))
     return out
@@ -434,9 +424,10 @@ def _expected_random(seed, steps, starting_step):
 @pytest.mark.parametrize("config", ["training_random.gin", "training_weakest.gin"])
 def test_resumed_run_is_bit_identical_to_the_straight_run(root, tmp_path, config):
     """Two epochs straight, against one epoch and a resume: the same
-    history, parameters, buffers and controller bits.  Under the random
-    controller the resumed epoch draws what the straight one drew, each
-    step's draw that of (seed, step)."""
+    history, parameters, buffers and controller bits, its key included.
+    Under the random controller the resumed epoch draws what the straight
+    one drew, from the key the sidecar holds: each step's draw that of the
+    JAX package's key chain."""
     straight, s_steps = _port_train(config, root, tmp_path / "straight", "training_loop.n_epochs=3")
     _port_train(config, root, tmp_path / "resumed", "training_loop.n_epochs=2")
     resumed, r_steps = _port_train(config, root, tmp_path / "resumed", "training_loop.n_epochs=3",
@@ -452,7 +443,7 @@ def test_resumed_run_is_bit_identical_to_the_straight_run(root, tmp_path, config
     for key, value in straight.ctrl.as_dict().items():
         assert torch.equal(getattr(resumed.ctrl, key), value), key
     if config == "training_random.gin":
-        # unlocked from epoch 2 (step 4): each decision is the draw of (seed, step)
+        # unlocked from epoch 2 (step 4): each decision the JAX controller's
         want = _expected_random(777, range(8), 4)
         assert [(mode, caring) for _, _, mode, caring in s_steps] == want
         assert any(on for on, _ in want)

@@ -4,11 +4,11 @@ clips, 3 modalities of 4 frames of 32², 4 classes; 32² for the reason given
 in ``tests/test_torch_models_3d.py``), at width 0.25 and B=4:
 
 * the four training configs (``configs/training_3dcnn_{guided,random,
-  weakest,adaptive}.gin``), two epochs each: the port starts from the JAX
-  package's initial weights and takes its (B,) clip flips, so the history
-  agrees column for column (the random controller's draws differ by design,
-  so its history agrees in its columns and its decisions are the draws of
-  (seed, step) over modes 0..3);
+  weakest,adaptive}.gin``), two epochs each, from the seed alone: the port
+  draws the JAX package's initial weights, (B,) clip flips and random
+  controller decisions itself (``tests/test_torch_prng.py``), so the
+  history agrees column for column, and the random run's decisions are the
+  JAX controller's over modes 0..3;
 * recording (``configs/recording_3dcnn.gin``) and flow-off
   (``configs/eval_3dcnn.gin``) in both packages from the port's guided
   checkpoint: the same pickle structure and squeeze maps, the same
@@ -26,22 +26,19 @@ import pickle
 import numpy as np
 import pytest
 
-import jax
+import jax.numpy as jnp
 import torch
 
 from greedy_multimodal_learning_tpu import config as jax_cfg
 from greedy_multimodal_learning_tpu.analysis import get_rescale_weights as jax_get_rescale_weights
-from greedy_multimodal_learning_tpu.bootstrap import build_model_and_loaders as jax_build
-from greedy_multimodal_learning_tpu.bootstrap import init_state as jax_init_state
 from greedy_multimodal_learning_tpu.data.nvgesture import make_synthetic_nvgesture
-from greedy_multimodal_learning_tpu.engine import make_optimizer as jax_make_optimizer
+from greedy_multimodal_learning_tpu.engine import controller as jax_ctrl
 from greedy_multimodal_learning_tpu.entries import eval_ as jax_eval
 from greedy_multimodal_learning_tpu.entries import train as jax_train
 from greedy_multimodal_learning_tpu_torch import config as port_cfg
 from greedy_multimodal_learning_tpu_torch import entries as port_entries
 from greedy_multimodal_learning_tpu_torch.analysis import get_rescale_weights
-from greedy_multimodal_learning_tpu_torch.engine import Trainer, state_dict_from_jax
-from greedy_multimodal_learning_tpu_torch.engine import controller as port_ctrl
+from greedy_multimodal_learning_tpu_torch.engine import Trainer
 from greedy_multimodal_learning_tpu_torch.predict import predict_ as port_predict
 
 REPO = os.path.join(os.path.dirname(__file__), "..")
@@ -108,40 +105,22 @@ class _StepLog:
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """Both packages' ``train`` under each config from the JAX package's
-    initial weights and flips; returns (root, {config: (jax dir, port dir,
-    port steps, the port run's files)})."""
+    """Both packages' ``train`` under each config from the seed alone;
+    returns (root, {config: (jax dir, port dir, port steps, the port run's
+    files)})."""
     base = tmp_path_factory.mktemp("int3d")
     root = make_synthetic_nvgesture(str(base / "data"), n_train=N_TRAIN, n_test=N_TEST, num_modalities=M, frames=T,
                                     image_size=IMG, nclasses=NC)
     bindings = _common(root) + [f"train.batch_size={BATCH}", f"train.lr={LR}", "training_loop.n_epochs=3"]
-    mp = pytest.MonkeyPatch()
     out = {}
     try:
-        # the JAX train entry's initial state, the same under every config
-        _configure(jax_cfg, "training_3dcnn_guided.gin", bindings)
-        model, (train_loader, _, _) = jax_build("MMTM_3DCNN", BATCH)
-        state = jax_init_state(model, train_loader, BATCH, 777, optimizer=jax_make_optimizer(lr=LR))
-        initial = state_dict_from_jax(state.params, state.batch_stats, state.mmtm)
-
-        def jax_weights(net, seed, device):
-            net.load_state_dict(initial, strict=False)
-            return net.to(device=device, memory_format=net.memory_format).eval()
-
-        def jax_flips(trainer, batch):
-            key = jax.random.fold_in(state.rng, trainer.step)  # steps.py:88
-            return torch.from_numpy(np.array(jax.random.bernoulli(key, 0.5, (batch,))))
-
         for config in CONFIGS:
             gin = f"training_3dcnn_{config}.gin"
             _configure(jax_cfg, gin, bindings)
             jax_train(str(base / config / "jax"))
-            mp.setattr(port_entries, "init_model", jax_weights)
-            mp.setattr(Trainer, "train_flips", jax_flips)
             _configure(port_cfg, gin, bindings + ["train.device='cpu'"])
             with _StepLog() as log:
                 port_entries.train(str(base / config / "port"))
-            mp.undo()
             jax_dir, port_dir = str(base / config / "jax"), str(base / config / "port")
             out[config] = (jax_dir, port_dir, log.steps, sorted(os.listdir(port_dir)))
             # the guided port run's checkpoints feed the eval tests; the others'
@@ -151,7 +130,6 @@ def runs(tmp_path_factory):
                     if name.endswith((".pt", ".pkl")):
                         os.remove(os.path.join(d, name))
     finally:
-        mp.undo()
         jax_cfg.clear_config()
         port_cfg.clear_config()
     return root, out
@@ -170,18 +148,18 @@ def test_training_configs_give_the_jax_history(runs, config):
     for name in ("history.pickle", "model_best_val.pt", "model_last_epoch.pt", "model_last_epoch.pt.torch.pt"):
         assert name in artifacts, name
     assert [s[0] for s in steps] == list(range(4))
-    agree = len(p_rows)
     if config == "random":
-        # the draws are the port's own: each decision the draw of (seed, step)
+        # the JAX controller's decisions (key PRNGKey(777), one split a step)
         # over modes 0..3 (mode m > 0 curates modality m - 1), unlocked from
-        # epoch 2 (step 2); so only the locked epoch 1 agrees with the JAX run
-        gen = torch.Generator()
-        draws = [int(port_ctrl.random_draw(gen, 777, t, M)) for t in range(4)]
-        assert [(on, caring) for _, on, caring in steps] == [
-            (t >= 2 and d != 0, d - 1 if t >= 2 and d != 0 else 0) for t, d in enumerate(draws)]
-        agree = 1
+        # epoch 2 (step 2)
+        state, want = jax_ctrl.init_controller_state(M, 777), []
+        for t in range(4):
+            state = jax_ctrl.random_update(state, jnp.ones(2 * M), jnp.ones(2 * M), jnp.asarray(t >= 2),
+                                           num_modalities=M)
+            want.append((bool(state.curation_mode), int(state.caring_modality)))
+        assert [(on, caring) for _, on, caring in steps] == want
     keep = [i for i, c in enumerate(j_cols) if c not in CLOCK_COLUMNS]
-    np.testing.assert_allclose(np.array(p_rows)[:agree, keep], np.array(j_rows)[:agree, keep], rtol=HISTORY_RTOL,
+    np.testing.assert_allclose(np.array(p_rows)[:, keep], np.array(j_rows)[:, keep], rtol=HISTORY_RTOL,
                                atol=HISTORY_ATOL, err_msg=str([j_cols[i] for i in keep]))
 
 

@@ -4,14 +4,16 @@
 * ``load_training_state`` from a sidecar the JAX package's ``save_weights``
   wrote (momentum 0; momentum 0.9 with weight decay) restores what
   ``load_into_state(..., full_restore=True)`` restores: parameters,
-  statistics, MMTM buffers, controller, step, learning rate and the
-  momentum trace, exactly; one guided step from there, with the JAX
-  package's flips fed in, agrees with the JAX package's step within the
-  bounds of ``tests/test_torch_train_step.py``;
+  statistics, MMTM buffers, controller, step, both PRNG keys, learning
+  rate and the momentum trace, exactly; one guided step from there, the
+  port's flips drawn from the restored data key (the JAX package's),
+  agrees with the JAX package's step within the bounds of
+  ``tests/test_torch_train_step.py``;
 * ``train`` with ``resume=True`` continues a two-epoch run of the JAX
   package to three epochs, keeping epochs 1-2 of ``history.csv`` verbatim,
-  and its third epoch matches the JAX package's own resume (lr 1e-5, JAX's
-  flips fed in: at the tests' lr the tiny network is chaotic);
+  and its third epoch matches the JAX package's own resume (lr 1e-5, the
+  flips drawn from the sidecar's data key whatever ``train.seed`` says: at
+  the tests' lr the tiny network is chaotic);
 * ``load_weights`` restores the MMTM buffers: a curated forward matches the
   JAX package's;
 * the reader imports no jax, flax, optax nor the JAX package (a subprocess
@@ -55,6 +57,7 @@ from greedy_multimodal_learning_tpu_torch.data.transforms import preprocess
 from greedy_multimodal_learning_tpu_torch.engine import Trainer, load_weights, make_optimizer, save_weights
 from greedy_multimodal_learning_tpu_torch.engine import state_dict_from_jax
 from greedy_multimodal_learning_tpu_torch.engine.checkpoint import read_jax_sidecar
+from greedy_multimodal_learning_tpu_torch.engine.controller import key_array
 from greedy_multimodal_learning_tpu_torch.entries import train
 from greedy_multimodal_learning_tpu_torch.models import MMTMMVCNN
 
@@ -163,6 +166,9 @@ def test_restore_matches_load_into_state(saved):
         got_f = getattr(trainer.ctrl, f).numpy()
         assert got_f.dtype == want_f.dtype and np.array_equal(got_f, want_f), f
     assert trainer.step == int(want.step) == 2
+    # both PRNG keys are kept (the controller's and the data key)
+    np.testing.assert_array_equal(key_array(trainer.ctrl.rng), np.asarray(want.controller.rng))
+    np.testing.assert_array_equal(trainer.data_key, np.asarray(want.rng))
     assert trainer.get_lr() == float(np.asarray(want.opt_state.hyperparams["learning_rate"])) == np.float32(SAVED_LR)
     traces = [s for s in want.opt_state.inner_state if type(s).__name__ == "TraceState"]
     state = trainer.optimizer.state
@@ -178,13 +184,15 @@ def test_restore_matches_load_into_state(saved):
 
 
 def test_one_step_after_restore_matches_jax(saved):
-    """One guided step from the restored states, with the JAX package's
-    flips, within tests/test_torch_train_step.py's bounds."""
+    """One guided step from the restored states, the port drawing its flips
+    from the restored data key (the JAX package's flips), within
+    tests/test_torch_train_step.py's bounds."""
     state = saved["restored"]
     trainer = _port_trainer(saved["momentum"], saved["wd"])
     trainer.restore(saved["path"])
     batch = _batch(7)
-    flips = _jax_flips(state.rng, int(state.step), (B, V))
+    flips = trainer.train_flips(B, V).numpy()
+    np.testing.assert_array_equal(flips, _jax_flips(state.rng, int(state.step), (B, V)))
     before = state_dict_from_jax(state.params, state.batch_stats, state.mmtm)
     state, j_out = saved["step"](state, {k: jnp.asarray(v) for k, v in batch.items()}, jnp.asarray(True))
     t_out = trainer.train_batch({k: torch.from_numpy(v) for k, v in batch.items()}, torch.from_numpy(flips),
@@ -258,6 +266,7 @@ import json, sys
 for name in ("jax", "jaxlib", "flax", "optax", "greedy_multimodal_learning_tpu"):
     sys.modules[name] = None
 from greedy_multimodal_learning_tpu_torch.engine.checkpoint import read_jax_sidecar
+from greedy_multimodal_learning_tpu_torch.engine.controller import key_array
 side = read_jax_sidecar(sys.argv[1])
 print(json.dumps({"keys": sorted(side), "opt_state": type(side["opt_state"]).__name__,
                   "inner": [type(s).__name__ for s in side["opt_state"].inner_state], "step": int(side["step"]),
@@ -319,7 +328,7 @@ def _rows(save):
 def resumed(tmp_path_factory):
     """A two-epoch run of the JAX package (guided, momentum 0.9, lr 1e-5),
     then resumed to three epochs by the JAX package and, from a copy, by the
-    port with the JAX package's flips."""
+    port, whose flips come from the data key the sidecar holds."""
     base = tmp_path_factory.mktemp("resume")
     root = make_synthetic_modelnet(str(base / "data"), n_train=8, n_test=4, num_views=2, image_size=IMG, nclasses=NC)
     run = str(base / "jax")
@@ -328,19 +337,15 @@ def resumed(tmp_path_factory):
     first = _rows(run)
     port_run = str(base / "port")
     shutil.copytree(run, port_run)
-    rng = read_jax_sidecar(os.path.join(run, "model_last_epoch.pt.jax.pkl"))["rng"]
     jax_cfg.clear_config()
     jax_cfg.parse_config_files_and_bindings([CONFIG], "\n".join(_bindings(root, 4, True)))
     jax_train(run)
     jax_cfg.clear_config()
 
-    original = Trainer.train_flips
-    Trainer.train_flips = lambda self, *shape: torch.from_numpy(_jax_flips(rng, self.step, shape))
-    try:
-        port_cfg.parse_config_files_and_bindings([CONFIG], "\n".join(_bindings(root, 4, True) + ["train.device='cpu'"]))
-        trainer = train(port_run)
-    finally:
-        Trainer.train_flips = original
+    # another seed: the keys come from the sidecar, not from train.seed
+    port_cfg.parse_config_files_and_bindings(
+        [CONFIG], "\n".join(_bindings(root, 4, True) + ["train.device='cpu'", "train.seed=5"]))
+    trainer = train(port_run)
     yield first, _rows(run), _rows(port_run), trainer, port_run
     shutil.rmtree(base, ignore_errors=True)
 

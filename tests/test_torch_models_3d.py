@@ -47,6 +47,7 @@ from greedy_multimodal_learning_tpu_torch.models import (
     build_3dcnn_from_config,
     build_model_from_config,
 )
+from greedy_multimodal_learning_tpu_torch.utils import prng
 
 B, M, T, IMG, NC, WIDTH = 4, 3, 4, 16, 4, 0.25
 # Train-mode forwards run at 32²: at 16² layer group 4's maps are 1x1x1, so
@@ -126,14 +127,27 @@ def test_masked_5d_batchnorm_matches_jax(masked, dtype):
 def test_conv3d_takes_the_kaiming_fan_out_init():
     """``init_parameters`` reaches 3-D convolutions: std sqrt(2 / fan_out)
     with fan_out = O * 3 * 7 * 7 for the stem (torch's default init would
-    give a uniform of std sqrt(1 / (3 fan_in)))."""
+    give a uniform of std sqrt(1 / (3 fan_in))); under one key a trunk takes
+    flax's draws (``ResNet3D18Trunk.init``): the convolutions within 4
+    float32 ulps (``tests/test_torch_prng.py``), the rest bit for bit."""
     trunk = ResNet3D18Trunk(NC)
-    init_parameters(trunk, torch.Generator().manual_seed(0))
+    init_parameters(trunk, prng.PRNGKey(0))
     w = trunk.conv1.weight
     assert w.shape == (64, 3, 3, 7, 7)
     want = (2.0 / (64 * 3 * 7 * 7)) ** 0.5
     assert abs(float(w.std()) / want - 1.0) < 0.03
     assert float(trunk.layer2[0].downsample[1].weight.min()) == 1.0  # BatchNorm3d: ones/zeros
+    small = ResNet3D18Trunk(NC, WIDTH)
+    init_parameters(small, prng.PRNGKey(0))
+    variables = JaxTrunk(nclasses=NC, width_multiplier=WIDTH).init(jax.random.PRNGKey(0),
+                                                                    jnp.asarray(_clips(1, img=IMG)[:, 0]), train=False)
+    got = small.state_dict()
+    for name, value in state_dict_from_jax(variables["params"], variables["batch_stats"]).items():
+        a, b = got[name].numpy(), value.numpy()
+        if a.ndim == 5:
+            assert np.abs(a.view(np.int32).astype(np.int64) - b.view(np.int32).astype(np.int64)).max() <= 4, name
+        else:
+            np.testing.assert_array_equal(a, b, err_msg=name)
 
 
 # ---- the clip flip -------------------------------------------------------------------------
@@ -155,9 +169,10 @@ def test_clip_flip_matches_jax(dtype):
 def test_clip_flips_are_drawn_per_sample():
     clips = torch.zeros((4, M, T, 3, 3, 3), dtype=torch.uint8)
     assert flip_shape(clips.shape) == (4,) and flip_shape((4, 2, 3, 3, 3)) == (4, 2)
-    assert draw_flips((4,), torch.Generator().manual_seed(1)).shape == (4,)
-    a = preprocess(clips, train=True, generator=torch.Generator().manual_seed(1))
-    b = preprocess(clips, train=True, generator=torch.Generator().manual_seed(1))
+    key = prng.PRNGKey(1)
+    np.testing.assert_array_equal(draw_flips((4,), key).numpy(), np.asarray(jax.random.bernoulli(key, 0.5, (4,))))
+    a = preprocess(clips, train=True, key=key)
+    b = preprocess(clips, train=True, key=prng.PRNGKey(1))
     assert torch.equal(a, b)
     with pytest.raises(ValueError, match="flip mask"):
         preprocess(clips, train=True, flip=torch.zeros((4, M), dtype=torch.bool))

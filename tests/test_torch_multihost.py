@@ -31,6 +31,7 @@ from greedy_multimodal_learning_tpu_torch.data.synthetic import make_synthetic_m
 from greedy_multimodal_learning_tpu_torch.engine import Trainer, make_optimizer
 from greedy_multimodal_learning_tpu_torch.engine.callbacks import LambdaCallback
 from greedy_multimodal_learning_tpu_torch.models import MMTMMVCNN, init_parameters
+from greedy_multimodal_learning_tpu_torch.utils import prng
 from greedy_multimodal_learning_tpu_torch.parallel.launch import run_ranks
 
 GROUP_TIMEOUT = datetime.timedelta(seconds=60)
@@ -55,7 +56,7 @@ def test_process_local_indices_match_jax(monkeypatch, length, n_nodes):
 
 def _trainer(world):
     model = MMTMMVCNN(nclasses=NC).to(memory_format=torch.channels_last)
-    init_parameters(model, torch.Generator().manual_seed(0))
+    init_parameters(model, prng.PRNGKey(0))
     return Trainer(model, make_optimizer(model.parameters(), lr=LR), controller_kind="guided",
                    controller_config={"epsilon": 0.01, "curation_windowsize": 5}, device="cpu", world=world,
                    verbose=False)

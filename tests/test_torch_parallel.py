@@ -33,6 +33,7 @@ from greedy_multimodal_learning_tpu_torch.engine import Trainer, make_optimizer
 from greedy_multimodal_learning_tpu_torch.engine.controller import ControllerState
 from greedy_multimodal_learning_tpu_torch.models import MMTM3DCNN, MMTMMVCNN, BatchNorm2d, BatchNorm3d, init_parameters
 from greedy_multimodal_learning_tpu_torch.parallel.launch import run_ranks
+from greedy_multimodal_learning_tpu_torch.utils import prng
 
 GROUP_TIMEOUT = datetime.timedelta(seconds=60)
 RUN_TIMEOUT = 150.0  # seconds for every rank of a spawned run
@@ -125,7 +126,7 @@ def _run_steps(family, starts, batches, flips, momentum, world):
 
 def _seeded_state(family, seed=0):
     model = _model(family)
-    init_parameters(model, torch.Generator().manual_seed(seed))
+    init_parameters(model, prng.PRNGKey(seed))
     return {k: v.numpy().copy() for k, v in model.state_dict().items()}
 
 
@@ -386,6 +387,8 @@ def test_world_one_is_the_plain_step_bit_for_bit(family):
 
 
 def test_flips_of_two_ranks_join_into_the_one_process_draw():
+    import jax
+
     model = MMTMMVCNN(nclasses=NC)
     one = _trainer(model, 0.0, None)
     ranks = [_trainer(model, 0.0, parallel.World(size=2, rank=r, local_size=2)) for r in range(2)]
@@ -395,6 +398,9 @@ def test_flips_of_two_ranks_join_into_the_one_process_draw():
         joined = torch.cat([t.train_flips(B // 2, V) for t in ranks])
         assert torch.equal(joined, one.train_flips(B, V))
         assert torch.equal(torch.cat([t.train_flips(2) for t in ranks]), one.train_flips(4))
+        # the JAX package's draw of the global batch (steps.py:88)
+        key = jax.random.fold_in(jax.random.split(jax.random.PRNGKey(777))[1], step)
+        np.testing.assert_array_equal(joined.numpy(), np.asarray(jax.random.bernoulli(key, 0.5, (B, V))))
 
 
 def test_a_batch_the_ranks_do_not_split_raises():

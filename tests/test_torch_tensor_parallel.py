@@ -396,7 +396,10 @@ def test_a_model_size_that_does_not_divide_raises():
 def test_rows_and_flips_of_a_grid():
     """Rank r of dp 2 × tp 2 has data index r // 2 and model index r % 2:
     the two ranks of a model group take the same rows and flips, and the
-    data indices' flips join into the one-process draw."""
+    data indices' flips join into the one-process draw, the JAX package's
+    ``bernoulli(fold_in(data_key, step))`` of the global batch."""
+    import jax
+
     worlds = [parallel.World(size=4, rank=r, local_size=4, model_size=2) for r in range(4)]
     assert [(w.data_index, w.model_index, w.data_size) for w in worlds] == [(0, 0, 2), (0, 1, 2), (1, 0, 2),
                                                                              (1, 1, 2)]
@@ -414,6 +417,9 @@ def test_rows_and_flips_of_a_grid():
         grid = [t.train_flips(B // 2, V) for t in trainers[1:]]
         assert torch.equal(grid[0], grid[1]) and torch.equal(grid[2], grid[3])
         assert torch.equal(torch.cat([grid[0], grid[2]]), trainers[0].train_flips(B, V))
+        key = jax.random.fold_in(jax.random.split(jax.random.PRNGKey(777))[1], step)
+        np.testing.assert_array_equal(torch.cat([grid[0], grid[2]]).numpy(),
+                                      np.asarray(jax.random.bernoulli(key, 0.5, (B, V))))
 
 
 def test_the_rule_selects_the_jax_leaves():

@@ -135,19 +135,6 @@ def test_callbacks_by_name():
     assert [c.controller_kind for c in built] == ["random", "weakest", "adaptive_weakest"]
 
 
-@pytest.mark.parametrize("binding, match", [
-    ("training_loop.orbax_dir='ckpt'", "orbax_dir"),
-])
-def test_unported_loop_options_raise(tmp_path, binding, match):
-    """``orbax_dir``, which the port does not run (Orbax is a JAX library's
-    format), raises in ``train``."""
-    root = make_synthetic_modelnet(str(tmp_path / "data"), n_train=5, n_test=2, num_views=2, image_size=IMG, nclasses=NC)
-    port_cfg.parse_config_files_and_bindings(
-        [CONFIG], "\n".join(_bindings(root) + ["train.device='cpu'", binding]))
-    with pytest.raises(NotImplementedError, match=match):
-        train(str(tmp_path / "run"))
-
-
 @pytest.mark.parametrize("binding", ["training_loop.model_parallel=2", "evalution_loop.model_parallel=2"])
 def test_model_parallel_without_data_parallel_is_ignored(tmp_path, binding):
     """Without ``data_parallel`` ``model_parallel`` is ignored, as the JAX
@@ -173,6 +160,7 @@ def test_model_parallel_without_data_parallel_is_ignored(tmp_path, binding):
     "MMTM_MVCNN.stem_s2d=True",
     "MMTM_MVCNN.remat=True",
     "training_loop.data_parallel=True",  # over a one-rank group of its own: no process group here
+    "training_loop.orbax_dir='snapshots'",  # one asynchronous snapshot, under save_path
 ])
 def test_ported_loop_options_train(tmp_path, binding):
     """Options that raised before they were ported: each trains an epoch on
@@ -191,4 +179,6 @@ def test_ported_loop_options_train(tmp_path, binding):
     for name in ("history.csv", "history.pickle", "model_best_val.pt", "model_last_epoch.pt",
                  "model_best_val.pt.torch.pt", "model_last_epoch.pt.torch.pt"):
         assert (save / name).exists(), name
+    if "orbax_dir" in binding:
+        assert sorted(os.listdir(save / "snapshots")) == ["1"] and (save / "snapshots" / "1" / ".metadata").exists()
     shutil.rmtree(save)  # ~190 MB of full-width checkpoints

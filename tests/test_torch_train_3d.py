@@ -191,7 +191,8 @@ def test_controller_updates_at_n3_match_jax(jax_params, kind):
     """Twelve steps of each update from the same state, each side fed its own
     package's group sums of the same 3D-model tensors (the sums agree); the
     weakest controllers with a host target set after step 3, the random one
-    with the JAX package's draws: every field at every step."""
+    splitting the key it carries as the JAX package's does: every field,
+    and the key, at every step."""
     port = MMTM3DCNN(nclasses=NC, width_multiplier=WIDTH)
     names = [n for n, _ in port.named_parameters()]
     j_reduce = JaxGroupReducer(jax_params, BRANCHES, NAMES)
@@ -204,7 +205,8 @@ def test_controller_updates_at_n3_match_jax(jax_params, kind):
     }[kind]
     j_fn, t_fn = getattr(jax_ctrl, f"{kind}_update"), getattr(port_ctrl, f"{kind}_update")
     jstate = jax_ctrl.init_controller_state(M, seed=5)
-    tstate = port_ctrl.ControllerState(**{f: torch.from_numpy(np.array(getattr(jstate, f))) for f in FIELDS})
+    # the port's state starts with the JAX state's key and splits it itself
+    tstate = port_ctrl.ControllerState(**{f: torch.from_numpy(np.array(getattr(jstate, f))) for f in FIELDS + ("rng",)})
     key, rng, modes, draws = jstate.rng, np.random.default_rng(6), [], []
 
     def sums(tree):
@@ -224,10 +226,8 @@ def test_controller_updates_at_n3_match_jax(jax_params, kind):
         if kind == "random":
             key, sub = jax.random.split(key)  # controller.py:260-261
             draws.append(int(jax.random.randint(sub, (), 0, M + 1)))
-            tstate = t_fn(tstate, torch.from_numpy(j_gn), torch.from_numpy(j_wn), torch.tensor(unlock),
-                          torch.tensor(draws[-1]), **kw)
-        else:
-            tstate = t_fn(tstate, torch.from_numpy(j_gn), torch.from_numpy(j_wn), torch.tensor(unlock), **kw)
+        tstate = t_fn(tstate, torch.from_numpy(j_gn), torch.from_numpy(j_wn), torch.tensor(unlock), **kw)
+        np.testing.assert_array_equal(port_ctrl.key_array(tstate.rng), np.asarray(jstate.rng), err_msg=f"step {t}")
         for f in FIELDS:
             got, want = getattr(tstate, f).numpy(), np.asarray(getattr(jstate, f))
             assert got.dtype == want.dtype, (t, f)

@@ -27,6 +27,7 @@ from greedy_multimodal_learning_tpu_torch.engine.bdr import GroupReducer
 from greedy_multimodal_learning_tpu_torch.engine.controller import guided_update, init_controller_state
 from greedy_multimodal_learning_tpu_torch.engine.metrics import blend_and_per_view_acc, blend_loss
 from greedy_multimodal_learning_tpu_torch.models import BatchNorm2d, MMTMMVCNN
+from greedy_multimodal_learning_tpu_torch.utils import prng
 
 B, H, W, C = 6, 5, 4, 8
 MASK = np.array([1, 1, 1, 0, 1, 1], np.float32)  # row 3 is padding
@@ -151,11 +152,15 @@ def test_train_preprocess_matches_jax_flips(dtype):
 
 
 def test_draws_flips_from_the_generator_only():
-    images = torch.zeros((4, 2, 3, 3, 3), dtype=torch.uint8)
-    a = preprocess(images, train=True, generator=torch.Generator().manual_seed(1))
+    """The flips come from the PRNG key alone (not torch's global
+    generator), and are the JAX package's under that key."""
+    images = torch.from_numpy(np.random.default_rng(2).integers(0, 256, (4, 2, 3, 3, 3), dtype=np.uint8))
+    a = preprocess(images, train=True, key=prng.PRNGKey(1))
     torch.manual_seed(0)
-    b = preprocess(images, train=True, generator=torch.Generator().manual_seed(1))
+    b = preprocess(images, train=True, key=prng.PRNGKey(1))
     assert torch.equal(a, b)
+    want = jax_preprocess(jnp.asarray(images.numpy()), train=True, rng=jax.random.PRNGKey(1))
+    np.testing.assert_array_equal(a.numpy(), np.asarray(want))
     with pytest.raises(ValueError, match="flip"):
         preprocess(images, train=True)
 
