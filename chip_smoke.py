@@ -193,11 +193,13 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    by the driver's resume path, whose history equals (b)'s straight run's
    (cuDNN deterministic in that process).
    Each summary has the keys of the JAX package's for its family, finite
-   values, every artifact written; ``tools/analyze_northstar.py`` and
-   ``tools/analyze_northstar3d.py`` read them (subprocesses, rc 0); neither
+   values, every artifact written; the port's ``experiments.analyze``
+   reads them (subprocesses, rc 0); neither
    gating kernel launches (``use_pallas`` stays the configs' False, as in
    the JAX package's recorded runs); each run's accuracies, flow-off
-   accuracies and samples/s are logged;
+   accuracies and samples/s are logged, and the numeric regime each suite
+   ran in: the ``train.matmul_precision`` its arms bind and the TF32
+   switches of its process;
 17. a ``{"kernels": [...]}`` JSON line (with the launch counts of each 3D
    run, all 0, of each phase-12 run, of phase 13's, 14's and 15's runs
    and ranks, and of phase 16's suites, all 0), the ``nvidia-smi`` line,
@@ -2884,14 +2886,35 @@ def check_suite(tag, workdir, summary, family, seed):
             raise AssertionError(f"{tag}: {summary_file} is not the returned summary")
 
 
-def analyze(tool, summary_path):
-    """``tools/<tool>`` (numpy only) on a summary, as a subprocess; its
-    output's line count."""
-    r = subprocess.run([sys.executable, os.path.join(REPO, "tools", tool), summary_path], cwd=REPO,
-                       capture_output=True, text=True, timeout=120)
+def analyze(summary_path):
+    """The port's ``experiments.analyze`` (numpy only) on a summary, as a
+    subprocess; its output's line count."""
+    r = subprocess.run([sys.executable, "-m", "greedy_multimodal_learning_tpu_torch.experiments.analyze",
+                        summary_path], cwd=REPO, capture_output=True, text=True, timeout=120)
     if r.returncode != 0:
-        raise AssertionError(f"{tool}: rc {r.returncode}\n{r.stdout[-2000:]}\n{r.stderr[-2000:]}")
+        raise AssertionError(f"analyze: rc {r.returncode}\n{r.stdout[-2000:]}\n{r.stderr[-2000:]}")
     return len(r.stdout.splitlines())
+
+
+def tf32_switches():
+    """This process's TF32 switches of float32 convolutions and matmuls."""
+    return {"cudnn.allow_tf32": torch.backends.cudnn.allow_tf32,
+            "cuda.matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32}
+
+
+def suite_matmul_precision(driver, workdir, seed):
+    """``train.matmul_precision`` as each arm's train phase of ``driver``
+    binds it (its config files and bindings; None when unbound)."""
+    out = {}
+    for kind in ("guided", "random"):
+        _, config, bindings = driver.arm_phases(workdir, kind, seed, NS_EPOCHS, 50, "cuda")["train"]
+        cfg.clear_config()
+        try:
+            cfg.parse_config_files_and_bindings(config.split("#"), bindings.replace("#", "\n"))
+            out[kind] = cfg.query("train", "matmul_precision", None)
+        finally:
+            cfg.clear_config()
+    return out
 
 
 def northstar3d_child(workdir):
@@ -2911,7 +2934,7 @@ def northstar3d_child(workdir):
     torch.cuda.synchronize()
     with open(os.path.join(workdir, northstar3d.SUMMARY)) as f:
         out["3d"] = {"launches": [mmtm_gating.launches, mmtm_gating_bwd.launches], "wall_s": time.time() - t0,
-                     "summary": json.load(f)}
+                     "summary": json.load(f), "tf32": tf32_switches()}
 
     resumed = workdir + "_resumed"
     os.makedirs(resumed)
@@ -2946,8 +2969,8 @@ def northstar_phase():
     frames of 32², width 0.5), seed 7, ``--epochs 3``, its phases in that
     process, and (c) its guided run cut after epoch 1 and finished by the
     driver's resume, against (b)'s straight run, cuDNN deterministic.
-    ``tools/analyze_northstar*.py`` read both summaries."""
-    from greedy_multimodal_learning_tpu_torch.experiments import northstar
+    The port's ``experiments.analyze`` reads both summaries."""
+    from greedy_multimodal_learning_tpu_torch.experiments import northstar, northstar3d
 
     w2, w3 = os.path.join(NORTHSTAR, "2d"), os.path.join(NORTHSTAR, "3d")
     os.makedirs(NORTHSTAR, exist_ok=True)
@@ -2964,7 +2987,7 @@ def northstar_phase():
             summary = northstar.run_suite(w2, epochs=NS_EPOCHS, seeds=[NS_SEED], in_process=True, device="cuda")
         torch.cuda.synchronize()
         out = {"2d": {"launches": [mmtm_gating.launches, mmtm_gating_bwd.launches], "wall_s": time.time() - t0,
-                      "summary": summary}}
+                      "summary": summary, "tf32": tf32_switches()}}
         check_suite("northstar 2-D", w2, summary, "2d", NS_SEED)
 
         # (b) and (c): the child's last line
@@ -2986,8 +3009,10 @@ def northstar_phase():
     for key in ("2d", "3d", "resumed"):
         if out[key]["launches"] != [0, 0]:  # use_pallas stays the configs' False, as in the JAX runs
             raise AssertionError(f"northstar {key}: gating launches {out[key]['launches']}, want [0, 0]")
-    out["analyze_lines"] = [analyze("analyze_northstar.py", os.path.join(w2, "northstar_summary.json")),
-                            analyze("analyze_northstar3d.py", os.path.join(w3, "northstar3d_summary.json"))]
+    out["analyze_lines"] = [analyze(os.path.join(w2, "northstar_summary.json")),
+                            analyze(os.path.join(w3, "northstar3d_summary.json"))]
+    out["matmul_precision"] = {"2d": suite_matmul_precision(northstar, w2, NS_SEED),
+                               "3d": suite_matmul_precision(northstar3d, w3, NS3D_SEED)}
     for family in ("2d", "3d"):
         entries = out[family]["summary"]
         log(f"[northstar {family}] {out[family]['wall_s']:.1f}s, launches {out[family]['launches']}: " + "; ".join(
@@ -2999,6 +3024,10 @@ def northstar_phase():
     log(f"[northstar resume] 3-D guided s{NS3D_SEED} cut after epoch 1, resumed by the driver: history equal to the "
         f"straight run's (cuDNN deterministic), {resumed['wall_s']:.1f}s; the 3-D process {out['child_s']:.1f}s in "
         f"all; analyzers read both summaries ({out['analyze_lines']} lines)")
+    log("[northstar precision] " + "; ".join(
+        f"{family} suite ({where}): train.matmul_precision {out['matmul_precision'][family]}, "
+        + ", ".join(f"torch.backends.{k}={v}" for k, v in out[family]["tf32"].items())
+        for family, where in (("2d", "this process"), ("3d", "its own process"))))
     return out
 
 

@@ -10,7 +10,10 @@ JAX package's drivers under ``tools/``, copied and not imported.
   :mod:`.northstar3d` (RGB + depth + flow clips, ``tools/run_northstar3d.py``)
   train each arm and seed to convergence, run the recording and flow-off
   passes on its best-val checkpoint and write the summary JSON that
-  ``tools/analyze_northstar*.py`` read.
+  :mod:`.analyze` reads (``tools/analyze_northstar*.py``, copied), and
+  holds against a reference summary (:func:`.analyze.compare`);
+* :mod:`.shards` runs a suite's seeds over several driver processes side
+  by side on one card and merges their summaries.
 
 The drivers read each run's ``history.csv`` with the standard library, where
 the originals use pandas (:func:`.common.read_history`).

@@ -11,7 +11,8 @@ pipeline (configs/recording.gin → configs/eval.gin) on every trained run
 Produces <workdir>/northstar_summary.json with, per run: final/best
 accuracies, per-modality accuracies, steps-to-90%-top-1, and the
 cross-modal-flow-off (conditional utilization) per-modality accuracies;
-``tools/analyze_northstar.py`` reads it.
+``python -m greedy_multimodal_learning_tpu_torch.experiments.analyze``
+reads it (``--reference`` a JAX summary to compare the arms against).
 
 Usage:  python -m greedy_multimodal_learning_tpu_torch.experiments.northstar WORKDIR
             [--epochs 300] [--seeds 777 1234] [--arms guided random] [--device cuda]

@@ -10,8 +10,8 @@ configs/eval_3dcnn.gin) on every trained run.
 
 Produces <workdir>/northstar3d_summary.json with, per run: epochs, test
 top-1, per-modality accuracies, and the cross-modal-flow-off per-modality
-accuracies for all three modalities; ``tools/analyze_northstar3d.py``
-reads it.
+accuracies for all three modalities; ``python -m
+greedy_multimodal_learning_tpu_torch.experiments.analyze`` reads it.
 
 Usage:  python -m greedy_multimodal_learning_tpu_torch.experiments.northstar3d WORKDIR
             [--seeds 7 42] [--device cuda]

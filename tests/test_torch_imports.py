@@ -55,7 +55,7 @@ def test_importing_the_port_loads_no_jax():
     for name in ("engine.fold_bn", "engine.sweep", "eval_sweep", "run_api", "parallel", "parallel.mesh",
                  "parallel.multihost", "parallel.launch", "parallel.tensor", "experiments", "experiments.common",
                  "experiments.northstar", "experiments.northstar3d", "experiments.imbalanced_modelnet",
-                 "experiments.imbalanced_nvgesture"):
+                 "experiments.imbalanced_nvgesture", "experiments.analyze", "experiments.shards"):
         assert f"greedy_multimodal_learning_tpu_torch.{name}" in r.stdout, name
 
 
@@ -70,7 +70,8 @@ def test_source_has_no_jax_import(path):
 
 
 # an import of a tools/ module, or tools/ put on the import path
-_TOOLS_IMPORT = re.compile(r"^\s*(?:import|from)\s+(?:tools\b|driver_common\b|run_northstar|make_imbalanced_)"
+_TOOLS_IMPORT = re.compile(r"^\s*(?:import|from)\s+"
+                           r"(?:tools\b|driver_common\b|run_northstar|make_imbalanced_|analyze_northstar)"
                            r"|sys\.path\.\w+\(.*tools", re.M)
 
 
