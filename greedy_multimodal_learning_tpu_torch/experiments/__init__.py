@@ -13,7 +13,9 @@ JAX package's drivers under ``tools/``, copied and not imported.
   :mod:`.analyze` reads (``tools/analyze_northstar*.py``, copied), and
   holds against a reference summary (:func:`.analyze.compare`);
 * :mod:`.shards` runs a suite's seeds over several driver processes side
-  by side on one card and merges their summaries.
+  by side on one card and merges their summaries; :mod:`.shard_check`
+  trains one run alone and side by side under deterministic cuDNN and
+  compares the histories.
 
 The drivers read each run's ``history.csv`` with the standard library, where
 the originals use pandas (:func:`.common.read_history`).

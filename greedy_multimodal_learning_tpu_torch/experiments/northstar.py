@@ -130,6 +130,19 @@ def arm_phases(workdir, kind, seed, epochs, checkpoint_every, device=None, extra
     }
 
 
+def make_corpus(workdir):
+    """The suite's corpus under ``workdir/data``, made unless it holds one;
+    returns its path."""
+    data = os.path.join(workdir, "data")
+    os.makedirs(workdir, exist_ok=True)
+    if not os.path.exists(os.path.join(data, "metadata.json")):
+        rc = sh([sys.executable, "-m", "greedy_multimodal_learning_tpu_torch.experiments.imbalanced_modelnet", data],
+                os.path.join(workdir, "datagen.log"))
+        if rc != 0:
+            raise RuntimeError(f"imbalanced_modelnet: rc {rc} (see {workdir}/datagen.log)")
+    return data
+
+
 def run_suite(workdir, epochs=300, seeds=(777, 1234), arms=("guided", "random"), checkpoint_every=50,
               in_process=False, device="cuda", extra_bindings=""):
     """The driver: makes the corpus unless ``workdir/data`` holds one, then
@@ -138,11 +151,7 @@ def run_suite(workdir, epochs=300, seeds=(777, 1234), arms=("guided", "random"),
     # Subprocesses run with cwd=REPO: a relative workdir would split
     # artifacts between two trees (driver resolves against invoking cwd).
     workdir = os.path.abspath(workdir)
-    data = os.path.join(workdir, "data")
-    os.makedirs(workdir, exist_ok=True)
-    if not os.path.exists(os.path.join(data, "metadata.json")):
-        sh([sys.executable, "-m", "greedy_multimodal_learning_tpu_torch.experiments.imbalanced_modelnet", data],
-           os.path.join(workdir, "datagen.log"))
+    data = make_corpus(workdir)
 
     summary_path = os.path.join(workdir, SUMMARY)
     summary = {}

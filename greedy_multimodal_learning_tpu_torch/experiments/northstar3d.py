@@ -118,20 +118,26 @@ def arm_phases(workdir, kind, seed, epochs, checkpoint_every, device=None):
     }
 
 
+def make_corpus(workdir):
+    """The suite's corpus under ``workdir/data``, made unless it holds one;
+    returns its path."""
+    data = os.path.join(workdir, "data")
+    os.makedirs(workdir, exist_ok=True)
+    if not os.path.exists(os.path.join(data, "metadata.json")):
+        rc = sh([sys.executable, "-m", "greedy_multimodal_learning_tpu_torch.experiments.imbalanced_nvgesture", data]
+                + DATA_ARGS, os.path.join(workdir, "datagen.log"))
+        if rc != 0:
+            raise RuntimeError(f"imbalanced_nvgesture: rc {rc} (see {workdir}/datagen.log)")
+    return data
+
+
 def run_suite(workdir, epochs=EPOCHS_DEFAULT, seeds=(7, 42), arms=("guided", "random"), checkpoint_every=50,
               in_process=False, device="cuda"):
     """The driver: makes the corpus unless ``workdir/data`` holds one, then
     each arm and seed: train (resuming an interrupted run), record, flow
     off, summarize.  Returns the summary."""
     workdir = os.path.abspath(workdir)
-    data = os.path.join(workdir, "data")
-    os.makedirs(workdir, exist_ok=True)
-    if not os.path.exists(os.path.join(data, "metadata.json")):
-        sh(
-            [sys.executable, "-m", "greedy_multimodal_learning_tpu_torch.experiments.imbalanced_nvgesture", data]
-            + DATA_ARGS,
-            os.path.join(workdir, "datagen.log"),
-        )
+    make_corpus(workdir)
 
     summary_path = os.path.join(workdir, SUMMARY)
     summary = {}

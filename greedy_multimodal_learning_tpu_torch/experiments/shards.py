@@ -6,22 +6,23 @@ another in one work directory, and its B=8 steps leave the card mostly
 idle.  A shard is a work directory of its own with a driver process of its
 own: ``run`` starts ``--shards`` of them, which take the (arm, seed) runs
 one at a time from a shared queue, each through the driver's CLI at its
-defaults.  The corpus is made once, under ``ROOT/data``, and every shard's
-``data`` links to it (the generator writes the same bytes from the same
-arguments, so a shard's own would be identical).  ``merge`` writes the
+defaults on the card.  The corpus is made once, by the driver's own
+``make_corpus``, under ``ROOT/data``, and every shard's ``data`` links to it
+(the generator writes the same bytes from the same arguments, so a shard's
+own would be identical).  ``merge`` writes the
 union of the shards' summaries and each run's ``history.csv`` and flow-off
 ``history.csv`` into one directory, beside each shard's driver log.
 
 Usage:
     python -m greedy_multimodal_learning_tpu_torch.experiments.shards run {2d,3d} ROOT
         --shards N (--seeds 5 7 ... | --seeds-of SUMMARY) [--arms guided random] [--skip SUMMARY]
-        [--device cuda]
     python -m greedy_multimodal_learning_tpu_torch.experiments.shards merge {2d,3d} OUT ROOT/shard0 ...
 
 ``run`` writes ``ROOT/shards.log`` (each run's start and end, seconds from
 the start) and ``ROOT/device.txt`` (the card's ``nvidia-smi`` name and power
-limit, and the TF32 switches a fresh process has, which the runs keep: the
-drivers bind no ``train.matmul_precision``).  A shard's driver log is
+limit, and the TF32 switches of a fresh process, read in ``run``'s own
+process: the drivers' train processes bind no ``train.matmul_precision``,
+which leaves these defaults, and are not read themselves).  A shard's driver log is
 ``ROOT/shard<k>/driver.log``.  An interrupted ``run`` resumes where the
 drivers left off.
 """
@@ -38,23 +39,19 @@ import sys
 import threading
 import time
 
-import torch
+from . import northstar, northstar3d
+from .common import REPO
 
-from .common import REPO, sh
-
-FAMILIES = {
-    # family: (driver module, generator module, generator arguments, summary file)
-    "2d": ("northstar", "imbalanced_modelnet", [], "northstar_summary.json"),
-    "3d": ("northstar3d", "imbalanced_nvgesture",
-           ["--n-train", "400", "--n-test", "150", "--size", "32", "--frames", "8", "--nclasses", "10"],
-           "northstar3d_summary.json"),
-}
-PACKAGE = "greedy_multimodal_learning_tpu_torch.experiments"
+FAMILIES = {"2d": northstar, "3d": northstar3d}
 
 
 def precision_line():
-    """The TF32 switches of a process that binds no ``matmul_precision``."""
-    return (f"train.matmul_precision=None: torch.backends.cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}, "
+    """The TF32 switches of a fresh process, which a driver's train process
+    keeps: it binds no ``matmul_precision``."""
+    import torch
+
+    return (f"train.matmul_precision=None (a fresh process's defaults, read outside the train processes): "
+            f"torch.backends.cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}, "
             f"torch.backends.cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
 
 
@@ -68,18 +65,13 @@ def smi_line():
         return f"nvidia-smi: {e!r}"
 
 
-def run_shards(family, root, runs, shards=1, device="cuda"):
+def run_shards(family, root, runs, shards=1):
     """The (arm, seed) ``runs`` of ``family``, in that order, over ``shards``
-    driver processes, each with ``OMP_NUM_THREADS`` at the CPU cores over
-    ``shards``; returns {run name: driver rc}."""
-    driver, generator, gen_args, _ = FAMILIES[family]
+    driver processes on the card, each with ``OMP_NUM_THREADS`` at the CPU
+    cores over ``shards``; returns {run name: driver rc}."""
+    driver = FAMILIES[family]
     root = os.path.abspath(root)
-    os.makedirs(root, exist_ok=True)
-    data = os.path.join(root, "data")
-    if not os.path.exists(os.path.join(data, "metadata.json")):
-        rc = sh([sys.executable, "-m", f"{PACKAGE}.{generator}", data] + gen_args, os.path.join(root, "datagen.log"))
-        if rc != 0:
-            raise RuntimeError(f"{generator}: rc {rc} (see {root}/datagen.log)")
+    data = driver.make_corpus(root)
     with open(os.path.join(root, "device.txt"), "w") as f:
         f.write(smi_line() + "\n" + precision_line() + "\n")
 
@@ -110,8 +102,8 @@ def run_shards(family, root, runs, shards=1, device="cuda"):
             name = f"{arm}_s{seed}"
             note(f"shard{k} start {name}")
             with open(os.path.join(workdir, "driver.log"), "a") as log:
-                rc = subprocess.run([sys.executable, "-m", f"{PACKAGE}.{driver}", workdir, "--arms", arm,
-                                     "--seeds", str(seed), "--device", device],
+                rc = subprocess.run([sys.executable, "-m", driver.__name__, workdir, "--arms", arm,
+                                     "--seeds", str(seed), "--device", "cuda"],
                                     cwd=REPO, stdout=log, stderr=subprocess.STDOUT, env=env).returncode
             rcs[name] = rc
             note(f"shard{k} end {name} rc={rc}")
@@ -168,7 +160,7 @@ def merge_shards(family, out, shard_dirs):
     (``shards_<root>.log``) copied there, and the lines of the root's
     ``device.txt`` that ``out/device.txt`` lacks added to it.  A run that
     two sources hold with different entries raises.  Returns the summary."""
-    summary_file = FAMILIES[family][3]
+    summary_file = FAMILIES[family].SUMMARY
     os.makedirs(out, exist_ok=True)
     path = os.path.join(out, summary_file)
     merged = {}
@@ -209,7 +201,6 @@ def main(argv=None):
     seeds.add_argument("--seeds-of", metavar="SUMMARY", help="each arm at the seeds this summary holds it at")
     r.add_argument("--arms", nargs="+", default=["guided", "random"])
     r.add_argument("--shards", type=int, default=1)
-    r.add_argument("--device", default="cuda")
     r.add_argument("--skip", metavar="SUMMARY", help="leave out the runs this summary holds without an error")
     m = sub.add_parser("merge", help="merge the shards' summaries and histories into OUT")
     m.add_argument("family", choices=sorted(FAMILIES))
@@ -218,7 +209,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.command == "run":
         runs = plan_runs(args.arms, args.seeds, args.seeds_of, args.skip)
-        rcs = run_shards(args.family, args.root, runs, args.shards, args.device)
+        rcs = run_shards(args.family, args.root, runs, args.shards)
         failed = {k: v for k, v in rcs.items() if v != 0}
         print(json.dumps({"runs": len(rcs), "failed": failed}))
         return 1 if failed else 0

@@ -55,7 +55,8 @@ def test_importing_the_port_loads_no_jax():
     for name in ("engine.fold_bn", "engine.sweep", "eval_sweep", "run_api", "parallel", "parallel.mesh",
                  "parallel.multihost", "parallel.launch", "parallel.tensor", "experiments", "experiments.common",
                  "experiments.northstar", "experiments.northstar3d", "experiments.imbalanced_modelnet",
-                 "experiments.imbalanced_nvgesture", "experiments.analyze", "experiments.shards"):
+                 "experiments.imbalanced_nvgesture", "experiments.analyze", "experiments.shards",
+                 "experiments.shard_check"):
         assert f"greedy_multimodal_learning_tpu_torch.{name}" in r.stdout, name
 
 

@@ -16,7 +16,7 @@ import sys
 import numpy as np
 import pytest
 
-from greedy_multimodal_learning_tpu_torch.experiments import analyze, shards
+from greedy_multimodal_learning_tpu_torch.experiments import analyze, shard_check, shards
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOOLS = os.path.join(REPO, "tools")
@@ -27,6 +27,11 @@ FAMILIES = {
 }
 ARMS = ("guided", "random")
 ALPHA = 0.05
+# The metrics whose pairwise p and AUC the family's report prints (held
+# against the tool's text by test_report_is_the_tools).
+REPORTED = {"2d": {"flowoff_test_acc_modal_1", "steps_to_90_top1", "epochs_run", "test_acc"},
+            "3d": {"flowoff_test_acc_modal_1", "flowoff_test_acc_modal_2", "epochs_run", "test_acc",
+                   "final_train_acc_modal_2"}}
 
 
 def summary(family, side):
@@ -65,6 +70,16 @@ def tool(filename, mc_samples):
             sys.modules["analyze_northstar"] = saved_mod
 
 
+@pytest.fixture
+def small_chunks(monkeypatch):
+    """analyze's shuffles and exact assignments in blocks of 64, so that a
+    few hundred of them cross several block boundaries of the stream."""
+    monkeypatch.setattr(analyze, "_CHUNK", 64)
+    analyze._shuffles.cache_clear()
+    yield
+    analyze._shuffles.cache_clear()
+
+
 @pytest.fixture(scope="module")
 def comparisons():
     """``analyze.compare`` of each family's port summary against its JAX
@@ -99,29 +114,31 @@ def _pairs():
 
 
 @pytest.mark.parametrize("family,first,second", _pairs())
-def test_statistics_are_the_tools(family, first, second):
+def test_statistics_are_the_tools(family, first, second, small_chunks, monkeypatch):
     """On the JAX summary, each pair of arms and metric: the permutation p
-    over the whole arms (Monte Carlo, at 200 shuffles in both) and over
-    their first 5 and 6 runs (exact), and the U and AUC, equal the tools'."""
+    over their first 5 and 6 runs (exact, 462 assignments in blocks of 64)
+    and the U and AUC equal the tools'; so does the p over the whole arms
+    (Monte Carlo, 200 shuffles in blocks of 64 in analyze) for the metrics
+    whose pairwise lines the report test does not already hold."""
     jax = summary(family, "jax")
+    monkeypatch.setattr(analyze, "_MC_SAMPLES", 200)
     with tool(FAMILIES[family][3], 200) as modules:
         ref = modules["analyze_northstar"]
-        saved, analyze._MC_SAMPLES = analyze._MC_SAMPLES, 200
-        try:
-            for metric in analyze.METRICS[family] + ("final_train_acc_modal_1",):
-                a, b = analyze.arm_values(jax, first, metric), analyze.arm_values(jax, second, metric)
-                for x, y in ((a, b), (a[:5], b[:6])):
-                    assert analyze.permutation_pvalue(x, y) == ref.permutation_pvalue(x, y), (metric, len(x))
-                    assert analyze.mann_whitney_u(x, y) == ref.mann_whitney_u(x, y), metric
-                assert not analyze.permutation_pvalue(a, b)[1] and analyze.permutation_pvalue(a[:5], b[:6])[1]
-        finally:
-            analyze._MC_SAMPLES = saved
+        for metric in analyze.METRICS[family] + ("final_train_acc_modal_1",):
+            a, b = analyze.arm_values(jax, first, metric), analyze.arm_values(jax, second, metric)
+            for x, y in ((a, b), (a[:5], b[:6])):
+                assert analyze.mann_whitney_u(x, y) == ref.mann_whitney_u(x, y), metric
+            assert analyze.permutation_pvalue(a[:5], b[:6]) == ref.permutation_pvalue(a[:5], b[:6]), metric
+            assert analyze.permutation_pvalue(a[:5], b[:6])[1]
+            if metric not in REPORTED[family]:
+                p = analyze.permutation_pvalue(a, b)
+                assert p == ref.permutation_pvalue(a, b) and not p[1], metric
 
 
 @pytest.mark.parametrize("family", sorted(FAMILIES))
-def test_report_is_the_tools(family, monkeypatch):
+def test_report_is_the_tools(family, small_chunks, monkeypatch):
     """The family's report of the JAX summary prints the tool's text, line
-    for line (500 shuffles in both)."""
+    for line (500 shuffles in both, in blocks of 64 in analyze)."""
     _, _, name, filename = FAMILIES[family]
     path = os.path.join(REPO, "results", FAMILIES[family][0], name)
     monkeypatch.setattr(analyze, "_MC_SAMPLES", 500)
@@ -196,7 +213,7 @@ def test_compare_rows_and_cli(tmp_path, capsys):
 
 def _fake_shard(root, entries, family="2d"):
     os.makedirs(root)
-    with open(os.path.join(root, shards.FAMILIES[family][3]), "w") as f:
+    with open(os.path.join(root, shards.FAMILIES[family].SUMMARY), "w") as f:
         json.dump(entries, f)
     with open(os.path.join(root, "driver.log"), "w") as f:
         f.write(f"log of {os.path.basename(root)}\n")
@@ -244,3 +261,40 @@ def test_plan_runs_takes_the_reference_seeds(tmp_path):
     assert shards.plan_runs(["random", "guided"], seeds_of=str(ref), skip=str(done)) == [
         ("random", 12), ("guided", 3), ("guided", 9)]
     assert shards.plan_runs(["guided"], seeds=[5, 1]) == [("guided", 1), ("guided", 5)]
+
+
+def test_compare_histories_leaves_out_timing():
+    """``shard_check.compare_histories``: equal but for the timing columns
+    is identical; a changed value gives its column's largest difference;
+    NaN against NaN is equal; another epoch count is not identical."""
+    a = {"epoch": [1.0, 2.0], "time": [3.0, 4.0], "loss": [0.5, float("nan")], "acc": [10.0, 20.0]}
+    b = dict(a, time=[9.0, 9.0], epoch_begin_time=[1.0, 2.0])
+    b.pop("epoch_begin_time")
+    same = shard_check.compare_histories(a, b)
+    assert same["identical"] and same["max_abs_diff"] == {"epoch": 0.0, "loss": 0.0, "acc": 0.0}
+    other = shard_check.compare_histories(a, dict(a, acc=[10.0, 20.25]))
+    assert not other["identical"] and other["max_abs_diff"]["acc"] == 0.25
+    short = shard_check.compare_histories(a, {k: v[:1] for k, v in a.items()})
+    assert not short["identical"] and short["epochs"] == [2, 1]
+
+
+def test_committed_shard_check_is_identical():
+    """``results/northstar_torch/shard_check.json`` (the card's run of
+    ``shard_check``): every train process ended with rc 0, its history equal
+    to the first alone run's in every column but the timings, alone under
+    the host's threads and side by side at one thread each, under the TF32
+    switches that the suites' ``device.txt`` records."""
+    with open(os.path.join(REPO, "results", "northstar_torch", "shard_check.json")) as f:
+        report = json.load(f)
+    assert (report["arm"], report["seed"]) == (shard_check.ARM, shard_check.SEED)
+    runs = report["runs"]
+    assert set(runs) == {"alone0", "alone1"} | {f"side{k}" for k in range(shard_check.SIDE_BY_SIDE)}
+    with open(os.path.join(REPO, "results", "northstar_torch", "device.txt")) as f:
+        device = f.read()
+    for name, r in runs.items():
+        assert r["rc"] == 0 and r["against_alone0"]["identical"], name
+        switches = r["switches"]
+        assert switches["cudnn.deterministic"], name
+        assert (switches["OMP_NUM_THREADS"] == "1") == name.startswith("side"), name
+        assert (f"torch.backends.cudnn.allow_tf32={switches['cudnn.allow_tf32']}, "
+                f"torch.backends.cuda.matmul.allow_tf32={switches['cuda.matmul.allow_tf32']}") in device, name
