@@ -86,7 +86,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    test samples, three epochs, float32 and bfloat16, with
    ``get_mvdcndata.device_cache=False`` and with the default, cuDNN
    deterministic: the same history and bit-identical parameters and
-   buffers; ``train_samples_per_sec`` of epochs 2 and 3 of each;
+   buffers; ``train_samples_per_sec`` of epochs 2 and 3 of each (when the
+   histories differ, the cells that differ and a second streamed run's
+   agreement with each are printed before the phase fails);
 11. the 3-modality 3D-CNN family at full width (three r3d-18 towers, 25
    classes, RGB + depth + flow clips of 16 frames of 112², B=8) on a
    synthetic split of 80 train-file clips (64 train, 16 validation) and 16
@@ -346,6 +348,7 @@ RESCALE_TOL = (1e-5, 1e-6)  # (rtol, atol): on-device means vs the host's, f32 s
 FUSION_CHANNELS = (128, 256, 512)  # mmtm2..mmtm4
 SEED = 777  # train.seed: the flips' and the random controller's seed
 N_CACHE_TRAIN, N_CACHE_VAL, N_CACHE_TEST = 1024, 128, 128
+CLOCK_COLUMNS = ("time", "epoch_begin_time", "train_samples_per_sec")  # history columns read off the host clock
 # phase 11: the published r3d-18 input (16 frames of 112², Tran et al., CVPR
 # 2018, "A Closer Look at Spatiotemporal Convolutions"), RGB + depth + flow,
 # 25 classes, configs/training_3dcnn_guided.gin's batch of 8; 80 train-file
@@ -1372,10 +1375,22 @@ CACHE_BINDINGS = [
 ]
 
 
+def history_differences(rows, other):
+    """(epoch, column, value in ``rows``, value in ``other``) for every
+    history cell that differs, the wall-clock columns left out; a row that
+    only one history has counts with its whole row."""
+    out = [(r["epoch"], k, v, o.get(k)) for r, o in zip(rows, other) for k, v in r.items()
+           if k not in CLOCK_COLUMNS and o.get(k) != v]
+    longer = rows if len(rows) > len(other) else other
+    return out + [(r["epoch"], "row", None, None) for r in longer[min(len(rows), len(other)):]]
+
+
 def cache_phase():
     """Phase 10: the guided ``train`` entry streamed and cached, in turns
     (streamed, cached) for each dtype, cuDNN deterministic: the same
-    history and the same bits; ``train_samples_per_sec`` of epochs 2-3."""
+    history and the same bits; ``train_samples_per_sec`` of epochs 2-3.
+    When the histories differ, a second streamed run says whether the
+    streamed run repeats itself before the phase fails."""
     t0 = time.time()
     make_synthetic_modelnet(CACHE_DATA, n_train=N_CACHE_TRAIN + N_CACHE_VAL, n_test=N_CACHE_TEST, num_views=2,
                             image_size=224, nclasses=40, seed=2)
@@ -1405,10 +1420,17 @@ def cache_phase():
                 report[tag] = {"train_samples_per_s": rates, "epochs_2_3": rates[1:3], "wall_s": wall,
                                "fwd_launches": fwd, "bwd_launches": bwd}
             (cached, c_rows), (streamed, s_rows) = runs["cached"], runs["streamed"]
-            clocks = ("time", "epoch_begin_time", "train_samples_per_sec")
-            if [{k: v for k, v in r.items() if k not in clocks} for r in c_rows] != [
-                    {k: v for k, v in r.items() if k not in clocks} for r in s_rows]:
-                raise AssertionError(f"{dtype}: the cached run's history differs from the streamed run's")
+            differ = history_differences(s_rows, c_rows)
+            if differ:
+                counted(train, configs, CACHE_BINDINGS + ["get_mvdcndata.device_cache=False"],
+                        os.path.join(CACHE_RUNS, f"{dtype}_streamed_again"), 0)
+                with open(os.path.join(CACHE_RUNS, f"{dtype}_streamed_again", "history.csv")) as f:
+                    a_rows = list(csv.DictReader(f))
+                raise AssertionError(
+                    f"{dtype}: the cached run's history differs from the streamed run's in {len(differ)} cells, "
+                    f"(epoch, column, streamed, cached) {differ[:8]}; a second streamed run's history differs from "
+                    f"the first's in {len(history_differences(s_rows, a_rows))} cells and from the cached run's in "
+                    f"{len(history_differences(c_rows, a_rows))}")
             got, ref = cached.model.state_dict(), streamed.model.state_dict()
             differ = [k for k, v in ref.items() if not torch.equal(got[k], v)]
             if differ:
@@ -1970,7 +1992,6 @@ DP_BINDINGS = [b for b in TRAIN_BINDINGS if not b.startswith("train.batch_size")
 DP_STEPS = 3  # (b): guided steps, the last curating modality 1 with the second rank's rows all padding
 DP_GROUP_TIMEOUT = datetime.timedelta(seconds=300)
 DP_RUN_TIMEOUT = 400.0  # seconds for both ranks of (b) and (c)
-DP_TIME_COLUMNS = ("time", "epoch_begin_time", "train_samples_per_sec")
 DP_LOSS_RTOL = 1e-4  # (b): a step's loss, two ranks against one process (tests/test_parallel.py's)
 
 
@@ -1996,7 +2017,7 @@ def collectives_per_step(counts):
 def history_rows(save_path):
     with open(os.path.join(save_path, "history.csv")) as f:
         rows = list(csv.DictReader(f))
-    return rows, [{k: v for k, v in r.items() if k not in DP_TIME_COLUMNS} for r in rows]
+    return rows, [{k: v for k, v in r.items() if k not in CLOCK_COLUMNS} for r in rows]
 
 
 def dp_world1():
@@ -2706,7 +2727,7 @@ def snapshot_run(tag, extra):
 
 
 def history_values(rows):
-    return [{k: v for k, v in r.items() if k not in DP_TIME_COLUMNS} for r in rows]
+    return [{k: v for k, v in r.items() if k not in CLOCK_COLUMNS} for r in rows]
 
 
 def dir_bytes(path):

@@ -31,7 +31,6 @@ from __future__ import annotations
 
 import argparse
 import functools
-import itertools
 import json
 import os
 from math import comb
@@ -73,14 +72,31 @@ def _shuffles(size, samples, rng_seed):
     return np.concatenate(rows)
 
 
+@functools.lru_cache(maxsize=2)
+def _combinations(size, n):
+    """Every n-subset of ``range(size)`` as a row of ascending indices, the
+    rows in ``itertools.combinations`` order: (C(size, n), n).  Built a
+    subset size at a time: the k-subsets whose least index is s are s
+    before each (k - 1)-subset of ``range(s + 1, size)``, and those are a
+    tail of the (k - 1)-subsets of ``range(size)``."""
+    dtype = np.int8 if size < 128 else np.int32
+    rows = np.zeros((1, 0), dtype)  # the one 0-subset
+    for k in range(1, n + 1):
+        total = comb(size, k - 1)
+        rows = np.concatenate([
+            np.hstack([np.full((comb(size - s - 1, k - 1), 1), s, dtype),
+                       rows[total - comb(size - s - 1, k - 1):]])
+            for s in range(size - k + 1)])
+    rows.setflags(write=False)  # cached: every caller gets this array
+    return rows
+
+
 def _exact_assignments(size, n):
     """Blocks of (a's indices, the rest's indices), both ascending, over all
     C(size, n) assignments in ``itertools.combinations`` order."""
-    combos = itertools.combinations(range(size), n)
-    while True:
-        block = np.array(list(itertools.islice(combos, _CHUNK)), dtype=np.int64).reshape(-1, n)
-        if not len(block):
-            return
+    combos = _combinations(size, n)
+    for start in range(0, len(combos), _CHUNK):
+        block = combos[start:start + _CHUNK]
         mask = np.zeros((len(block), size), bool)
         mask[np.arange(len(block))[:, None], block] = True
         yield block, np.nonzero(~mask)[1].reshape(len(block), size - n)

@@ -68,10 +68,13 @@ def render_views(
     return views
 
 
+N_TRAIN = 1200  # train models of the default corpus (the 2-D driver's)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("out")
-    ap.add_argument("--n-train", type=int, default=1200)
+    ap.add_argument("--n-train", type=int, default=N_TRAIN)
     ap.add_argument("--n-test", type=int, default=400)
     ap.add_argument("--size", type=int, default=112)
     ap.add_argument("--nclasses", type=int, default=40)

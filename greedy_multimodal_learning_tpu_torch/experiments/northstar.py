@@ -62,7 +62,13 @@ def train_complete(run_dir, n_epochs):
 
 
 def summarize_run(run_dir, steps_per_epoch):
-    df = read_history(os.path.join(run_dir, "history.csv"))
+    return summarize_history(read_history(os.path.join(run_dir, "history.csv")), steps_per_epoch)
+
+
+def summarize_history(df, steps_per_epoch):
+    """A run's summary entry from its history's columns (:func:`read_history`):
+    the checkpoint-selected metrics are those of the first epoch of the
+    largest ``val_acc``, as ``tools/run_northstar.py`` selects it."""
     best_i = argmax_first(df["val_acc"])
     over90 = [i for i, a in enumerate(df["test_acc"]) if a >= 90.0]
     out = {
@@ -92,15 +98,20 @@ def read_mmtm_off(run_dir):
     }
 
 
-def steps_per_epoch(data):
-    """Steps an epoch from the actual dataset: the shipped training configs
-    use batch 8 and a 20% val split (configs/training*.gin); reference split:
-    val = floor(0.2n), train = n - floor(0.2n)
+def train_steps(n_train_total):
+    """Train steps an epoch of a corpus of ``n_train_total`` train models:
+    the shipped training configs of both families use batch 8 and a 20%
+    val split (configs/training*.gin); reference split: val =
+    floor(0.2n), train = n - floor(0.2n)
     (data/modelnet.py::reference_val_split) — not floor(0.8n)."""
-    with open(os.path.join(data, "metadata.json")) as f:
-        n_train_total = len(json.load(f)["train"])
     n_train_split = n_train_total - int(math.floor(0.2 * n_train_total))
     return -(-n_train_split // 8)
+
+
+def steps_per_epoch(data):
+    """:func:`train_steps` of the corpus at ``data``."""
+    with open(os.path.join(data, "metadata.json")) as f:
+        return train_steps(len(json.load(f)["train"]))
 
 
 def arm_phases(workdir, kind, seed, epochs, checkpoint_every, device=None, extra_bindings=""):

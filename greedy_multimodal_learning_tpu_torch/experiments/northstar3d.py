@@ -33,7 +33,8 @@ SUMMARY = "northstar3d_summary.json"
 # Small-but-real scale: 10 classes, 400/150 clips, 8 frames @32^2,
 # width 0.5 — minutes per arm on one chip, still imbalanced enough that
 # greedy learning visibly favors modality 0.
-DATA_ARGS = ["--n-train", "400", "--n-test", "150", "--size", "32", "--frames", "8", "--nclasses", "10"]
+N_TRAIN = 400  # train clips of the driver's corpus
+DATA_ARGS = ["--n-train", str(N_TRAIN), "--n-test", "150", "--size", "32", "--frames", "8", "--nclasses", "10"]
 WIDTH = 0.5
 EPOCHS_DEFAULT = 60
 ARM_CONFIGS = {

@@ -310,7 +310,7 @@ def draw(requests) -> list:
 def key_chain(key, steps: int) -> np.ndarray:
     """The first half of ``split`` applied ``steps`` times: the random
     controller's key after ``steps`` steps from ``key``."""
-    key = np.asarray(key, np.uint32)
-    for _ in range(int(steps)):
-        key = split(key)[0]
-    return key
+    k1, k2 = (int(v) for v in np.asarray(key, np.uint32))
+    for _ in range(int(steps)):  # split(key)[0]: the hash of the count 0
+        k1, k2 = _threefry_ints(k1, k2, 0, 0)
+    return _key((k1, k2))
