@@ -467,9 +467,11 @@ def profiled_kernels(direction, fn, args):
             torch.cuda.synchronize()
             time.sleep(0.01)
         # every kernel the card ran, by event type: a time filter drops kernels
-        # shorter than the trace's 1 us resolution
+        # shorter than the trace's 1 us resolution; a span's range on the
+        # device timeline is no kernel
         kernels = [e.name for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA and "mem" not in e.name.lower()]
+                   if e.device_type == torch.autograd.DeviceType.CUDA and "mem" not in e.name.lower()
+                   and not getattr(e, "is_user_annotation", False)]
         own = sum(any(k in name for k in OWN_KERNELS[direction]) for name in kernels)
         other = len(kernels) - own
         if other:

@@ -34,6 +34,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from ..utils import tracing
 from ..utils.native import collate_u8
 
 logger = logging.getLogger(__name__)
@@ -80,26 +81,27 @@ class BatchPipeline:
         return self.indices
 
     def _collate(self, batch_indices: np.ndarray) -> dict:
-        b = self.batch_size
-        size = len(batch_indices)
-        idxs = np.full((b,), -1, np.int32)  # -1 on pad rows
-        idxs[:size] = batch_indices
-        rows = self.rows or slice(0, b)
-        width = rows.stop - rows.start
-        # only this rank's rows are read and collated
-        items = [self.dataset[int(i)] for i in batch_indices[rows]]
-        if items:
-            imgs = collate_u8([it[1] for it in items], width)  # rows past the real ones zero
-        else:  # a block of padding only
-            imgs = np.zeros((width,) + self.dataset[int(self.indices[0])][1].shape, np.uint8)
-        labels = np.zeros((width,), np.int32)  # pad rows: label 0, mask 0
-        labels[:len(items)] = [it[2] for it in items]
-        mask = np.zeros((width,), np.float32)
-        mask[:len(items)] = 1.0
-        batch = {"images": imgs, "labels": labels, "indices": idxs, "mask": mask, "size": size}
-        if self.rows is not None:
-            batch["rows"] = self.rows
-        return batch
+        with tracing.span("pipeline.collate"):
+            b = self.batch_size
+            size = len(batch_indices)
+            idxs = np.full((b,), -1, np.int32)  # -1 on pad rows
+            idxs[:size] = batch_indices
+            rows = self.rows or slice(0, b)
+            width = rows.stop - rows.start
+            # only this rank's rows are read and collated
+            items = [self.dataset[int(i)] for i in batch_indices[rows]]
+            if items:
+                imgs = collate_u8([it[1] for it in items], width)  # rows past the real ones zero
+            else:  # a block of padding only
+                imgs = np.zeros((width,) + self.dataset[int(self.indices[0])][1].shape, np.uint8)
+            labels = np.zeros((width,), np.int32)  # pad rows: label 0, mask 0
+            labels[:len(items)] = [it[2] for it in items]
+            mask = np.zeros((width,), np.float32)
+            mask[:len(items)] = 1.0
+            batch = {"images": imgs, "labels": labels, "indices": idxs, "mask": mask, "size": size}
+            if self.rows is not None:
+                batch["rows"] = self.rows
+            return batch
 
     def __iter__(self):
         self.epoch += 1

@@ -22,7 +22,11 @@ the convolutions once an eval pass and runs that pass's forwards on the
 folded tensors through ``torch.func.functional_call``; training never sees
 them (``framework.py:110-119,285-313,347-360``).  ``enable_profiling``
 traces the next train epoch with ``torch.profiler``
-(``framework.py:169-171,220-254``).
+(``framework.py:169-171,220-254``); the trace holds the port's own spans
+(:mod:`..utils.tracing`: ``train.data``, ``train.callbacks``,
+``train.flips``, ``train.step`` and its ``step.*`` children, ``train.fetch``,
+``host.wait``), and their summary is logged after the epoch.  ``predict``
+records ``predict`` and its ``predict.*`` children whenever tracing is on.
 
 A trainer built with a ``world`` (:class:`~..parallel.World`) is one rank
 of a data-parallel run, the counterpart of the JAX trainer's ``mesh``
@@ -57,7 +61,7 @@ from ..data.transforms import draw_flips, flip_shape, preprocess
 from ..parallel import mesh as parallel
 from ..parallel import tensor as tensor_parallel
 from ..parallel.multihost import is_main_process
-from ..utils import prng
+from ..utils import prng, tracing
 from .bdr import GroupReducer
 from .callbacks import CallbackList, ProgressionCallback, ValidationProgressionCallback
 from .controller import ControllerState, controller_key, init_controller_state, key_array, key_tensor
@@ -87,7 +91,9 @@ def _fetch(records):
     if not records:
         return []
     keys = list(records[0])
-    flat = torch.cat([torch.cat([r[k].float().reshape(-1) for k in keys]) for r in records]).cpu().numpy()
+    flat = torch.cat([torch.cat([r[k].float().reshape(-1) for k in keys]) for r in records])
+    with tracing.span("host.wait"):
+        flat = flat.cpu().numpy()
     widths = [records[0][k].numel() for k in keys]
     out, offset = [], 0
     for _ in records:
@@ -107,7 +113,9 @@ def _fetch_records(per_batch, sizes):
         return {}
     keys = list(per_batch[0])
     leaves = [t[:size].reshape(-1) for rec, size in zip(per_batch, sizes) for k in keys for m in rec[k] for t in m]
-    flat = torch.cat(leaves).cpu().numpy()
+    flat = torch.cat(leaves)
+    with tracing.span("host.wait"):
+        flat = flat.cpu().numpy()
     out, offset = {k: [] for k in keys}, 0
     for rec, size in zip(per_batch, sizes):
         for k in keys:
@@ -203,6 +211,7 @@ class Trainer:
         self.rescale_accumulator = None
         self.fold_bn_eval = bool(fold_bn_eval)
         self.profile_dir = None  # enable_profiling: the next train epoch's trace goes here
+        self.predict_calls = 0  # the unit of predict's spans
         self.snapshots = None  # training_loop's engine.snapshots.Snapshots under orbax_dir
         self._skip_next_controller_reset = False
         if optimizer is None:
@@ -225,8 +234,9 @@ class Trainer:
         )
 
     def enable_profiling(self, trace_dir: str):
-        """Trace the next train epoch (CPU and, on a card, CUDA activity)
-        into one Chrome trace in ``trace_dir``; one epoch a call."""
+        """Trace the next train epoch (CPU and, on a card, CUDA activity,
+        with the port's spans as ranges) into one Chrome trace in
+        ``trace_dir`` and log the spans' summary; one epoch a call."""
         self.profile_dir = trace_dir
 
     # --- handles used by callbacks ---
@@ -344,21 +354,22 @@ class Trainer:
         a wait.  Under data parallelism ``shape`` is the rank's block: the
         global batch's flips are drawn and the rank takes its data index's
         rows, as the ranks of its model group do."""
-        key = prng.fold_in(self.data_key, self.step)
-        if self.world is None:
-            flips = draw_flips(shape, key)
-        else:
-            b, d = shape[0], self.world.data_index
-            flips = draw_flips((b * self.world.data_size,) + tuple(shape[1:]), key)[d * b:(d + 1) * b]
-        if self.device.type == "cuda":
-            flips = flips.pin_memory()  # a copy from pageable memory would wait
-        return flips.to(self.device, non_blocking=True)
+        with tracing.span("train.flips"):
+            key = prng.fold_in(self.data_key, self.step)
+            if self.world is None:
+                flips = draw_flips(shape, key)
+            else:
+                b, d = shape[0], self.world.data_index
+                flips = draw_flips((b * self.world.data_size,) + tuple(shape[1:]), key)[d * b:(d + 1) * b]
+            if self.device.type == "cuda":
+                flips = flips.pin_memory()  # a copy from pageable memory would wait
+            return flips.to(self.device, non_blocking=True)
 
     def train_batch(self, data, flips, unlock) -> dict:
         """One train step on a batch of device tensors with its
         ``flips`` and the () bool ``unlock``; advances the controller state
         and the step count.  Returns the step's device outputs."""
-        with parallel.data_parallel(self.world):
+        with tracing.span("train.step"), parallel.data_parallel(self.world):
             self.ctrl, out = train_step(
                 self.model, self.optimizer, self._reducer, self._controller_update, self.ctrl, data, flips, unlock
             )
@@ -428,40 +439,46 @@ class Trainer:
         path = os.path.join(self.profile_dir, f"train_steps_{first_step}-{self.step - 1}.trace.json")
         profiler.export_chrome_trace(path)
         logger.info("Train epoch traced to %s", path)
+        logger.info("Spans of the traced epoch (count, host ms, self ms, device ms): %s", tracing.summary())
         self.profile_dir = None
 
     def _train_epoch(self, generator, steps_per_epoch, callback_list):
         records, recorded, sizes, indices = [], [], [], []
         unlock = torch.tensor(self._unlock, device=self.device)
         profiler, first_step = self._start_profiler(), self.step
-        for batch_ind, batch in _steps(generator, steps_per_epoch):
-            batch_begin_time = timeit.default_timer()
-            callback_list.on_batch_begin(batch_ind, {})
-            callback_list.on_forward_begin(batch_ind, batch)
+        batches = tracing.iterate("train.data", _steps(generator, steps_per_epoch), units=itertools.count(self.step))
+        for batch_ind, batch in batches:
+            with tracing.span("train.callbacks"):
+                batch_begin_time = timeit.default_timer()
+                callback_list.on_batch_begin(batch_ind, {})
+                callback_list.on_forward_begin(batch_ind, batch)
             size = batch["size"]
             data = self._to_device(batch)
             out = self.train_batch(data, self.train_flips(*flip_shape(data["images"].shape)), unlock)
-            callback_list.on_backward_end(batch_ind)
-            recorded.append({k: out.pop(k) for k in RECORD_KEYS if k in out})
-            records.append(out)
-            sizes.append(size)
-            indices.append(np.asarray(batch["indices"])[:size] if self.world is None else self._block_indices(batch))
-            batch_logs = {
-                "batch": batch_ind,
-                "size": size,
-                "time": timeit.default_timer() - batch_begin_time,
-                "batch_begin_time": batch_begin_time,
-                **{k: out[k] for k in ("loss", "acc", "d_BDR", "curation_mode", "caring_modality")},
-            }
-            for i in range(self.nummodalities):
-                batch_logs[f"acc_modal_{i}"] = out["acc_modal"][i]
-            callback_list.on_batch_end(batch_ind, batch_logs)
+            with tracing.span("train.callbacks"):
+                callback_list.on_backward_end(batch_ind)
+                recorded.append({k: out.pop(k) for k in RECORD_KEYS if k in out})
+                records.append(out)
+                sizes.append(size)
+                indices.append(np.asarray(batch["indices"])[:size] if self.world is None
+                               else self._block_indices(batch))
+                batch_logs = {
+                    "batch": batch_ind,
+                    "size": size,
+                    "time": timeit.default_timer() - batch_begin_time,
+                    "batch_begin_time": batch_begin_time,
+                    **{k: out[k] for k in ("loss", "acc", "d_BDR", "curation_mode", "caring_modality")},
+                }
+                for i in range(self.nummodalities):
+                    batch_logs[f"acc_modal_{i}"] = out["acc_modal"][i]
+                callback_list.on_batch_end(batch_ind, batch_logs)
 
+        with tracing.span("train.fetch"):
+            outs = _fetch(records)  # the epoch's one synchronization point
+            indices, sizes, recorded = self._pass_records(indices, sizes, recorded)
         if profiler is not None:
             self._stop_profiler(profiler, first_step)
-        outs = _fetch(records)  # the epoch's one synchronization point
         self.curated_steps += int(sum(bool(o["curated"]) for o in outs))
-        indices, sizes, recorded = self._pass_records(indices, sizes, recorded)
         sizes = np.array(sizes, np.float64)
         losses = np.array([o["loss"] for o in outs], np.float64)
         total = sizes.sum()
@@ -631,27 +648,35 @@ class Trainer:
         Returns dict with ``indices`` (dataset order of the inputs),
         ``predictions`` (argmax of blended logits), ``probabilities``
         (softmax of blended logits) and per-view ``logits``, all numpy."""
-        self.model.eval()
-        if steps is None:
-            steps = len(generator)
-        all_idx, all_logits = [], []
-        for batch in itertools.islice(_cycle(generator), steps):
-            size = batch.pop("size")
-            indices = batch.pop("indices")
-            # The new MMTM state is discarded, as in the JAX package: predict
-            # leaves the model's buffers as they were.
-            _, logits = self._predict_step(batch)
-            all_idx.append(np.asarray(indices)[:size])
-            all_logits.append([l[:size] for l in logits])
-        logits = [torch.cat([b[v] for b in all_logits]).cpu().numpy() for v in range(self.nummodalities)]
-        blend = sum(logits) / float(self.nummodalities)
-        ex = np.exp(blend - blend.max(axis=1, keepdims=True))
-        return {
-            "indices": np.concatenate(all_idx),
-            "predictions": blend.argmax(axis=1),
-            "probabilities": ex / ex.sum(axis=1, keepdims=True),
-            "logits": logits,
-        }
+        self.predict_calls += 1
+        with tracing.span("predict", unit=self.predict_calls):
+            self.model.eval()
+            if steps is None:
+                steps = len(generator)
+            all_idx, all_logits = [], []
+            for batch in tracing.iterate("predict.data", itertools.islice(_cycle(generator), steps)):
+                size = batch.pop("size")
+                indices = batch.pop("indices")
+                # The new MMTM state is discarded, as in the JAX package: predict
+                # leaves the model's buffers as they were.
+                _, logits = self._predict_step(batch)
+                all_idx.append(np.asarray(indices)[:size])
+                all_logits.append([l[:size] for l in logits])
+            with tracing.span("predict.fetch"):
+                logits = []
+                for v in range(self.nummodalities):
+                    joined = torch.cat([b[v] for b in all_logits])
+                    with tracing.span("host.wait"):
+                        logits.append(joined.cpu().numpy())
+            with tracing.span("predict.post"):
+                blend = sum(logits) / float(self.nummodalities)
+                ex = np.exp(blend - blend.max(axis=1, keepdims=True))
+                return {
+                    "indices": np.concatenate(all_idx),
+                    "predictions": blend.argmax(axis=1),
+                    "probabilities": ex / ex.sum(axis=1, keepdims=True),
+                    "logits": logits,
+                }
 
     @torch.no_grad()
     def _predict_step(self, batch):
@@ -659,10 +684,12 @@ class Trainer:
         the trainer has ``mmtm_off``, as its eval passes run.  Returns (new
         MMTM state as ``{"mmtm2": {buffer: tensor}, ...}``, [per-view
         logits])."""
-        images = _on_device(batch["images"], self.device)
-        mask = _on_device(batch["mask"], self.device)
-        x = preprocess(images, train=False, dtype=self.model.dtype)
-        mmtm_state = {}
-        _, logits, _, _ = self.model(x, valid_mask=mask, mmtm_state=mmtm_state, mmtm_off=self.mmtm_off,
-                                     average_squeezemaps=self.average_squeezemaps)
+        with tracing.span("predict.h2d"):
+            images = _on_device(batch["images"], self.device)
+            mask = _on_device(batch["mask"], self.device)
+        with tracing.span("predict.forward", device=self.device):
+            x = preprocess(images, train=False, dtype=self.model.dtype)
+            mmtm_state = {}
+            _, logits, _, _ = self.model(x, valid_mask=mask, mmtm_state=mmtm_state, mmtm_off=self.mmtm_off,
+                                         average_squeezemaps=self.average_squeezemaps)
         return mmtm_state, logits

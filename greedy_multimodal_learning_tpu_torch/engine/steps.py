@@ -44,6 +44,7 @@ import torch
 from ..data.transforms import preprocess
 from ..parallel import mesh as parallel
 from ..parallel import tensor as tensor_parallel
+from ..utils import tracing
 from .bdr import GroupReducer
 from .controller import (
     ControllerState,
@@ -135,29 +136,35 @@ def train_step(
     ``mask``) with the bool ``flips``, (B, V) or (B,)
     (:func:`~..data.transforms.flip_shape`).  Returns (new controller
     state, outputs)."""
-    x = preprocess(batch["images"], train=True, flip=flips, dtype=model.dtype)
-    mask, labels = batch["mask"], batch["labels"]
-    _, logits, scales, squeezes = model(x, ctrl.curation_mode, ctrl.caring_modality, train=True, valid_mask=mask)
-    count = _world_count(mask)
-    loss = blend_loss(logits, labels, mask, count)
+    device = batch["images"].device
+    with tracing.span("step.forward", device=device):
+        x = preprocess(batch["images"], train=True, flip=flips, dtype=model.dtype)
+        mask, labels = batch["mask"], batch["labels"]
+        _, logits, scales, squeezes = model(x, ctrl.curation_mode, ctrl.caring_modality, train=True,
+                                            valid_mask=mask)
+        count = _world_count(mask)
+        loss = blend_loss(logits, labels, mask, count)
 
-    params = [p for group in optimizer.param_groups for p in group["params"]]
-    optimizer.zero_grad(set_to_none=True)
-    loss.backward()
-    world = parallel.active()
-    if world is not None:
-        tensor_parallel.all_reduce_grads_(model, params, world)
-        tensor_parallel.broadcast_buffers_(model, world)
-    with torch.no_grad():
-        gn, wn = _bdr_sums(model, reducer, params, world)
-    optimizer.step()
-    new_ctrl = controller_update(ctrl, gn, wn, unlock)
+    with tracing.span("step.backward", device=device):
+        params = [p for group in optimizer.param_groups for p in group["params"]]
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        world = parallel.active()
+        if world is not None:
+            tensor_parallel.all_reduce_grads_(model, params, world)
+            tensor_parallel.broadcast_buffers_(model, world)
 
-    with torch.no_grad():
-        out = _step_outputs(logits, labels, mask, loss, count)
-    out.update(d_BDR=new_ctrl.d_BDR, curation_mode=new_ctrl.curation_mode,
-               caring_modality=new_ctrl.caring_modality, curated=ctrl.curation_mode)
-    out.update(_records(model, scales, squeezes))
+    with tracing.span("step.update", device=device):
+        with torch.no_grad():
+            gn, wn = _bdr_sums(model, reducer, params, world)
+        optimizer.step()
+        new_ctrl = controller_update(ctrl, gn, wn, unlock)
+
+        with torch.no_grad():
+            out = _step_outputs(logits, labels, mask, loss, count)
+        out.update(d_BDR=new_ctrl.d_BDR, curation_mode=new_ctrl.curation_mode,
+                   caring_modality=new_ctrl.caring_modality, curated=ctrl.curation_mode)
+        out.update(_records(model, scales, squeezes))
     return new_ctrl, out
 
 

@@ -34,6 +34,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..utils import tracing
 from .build import load
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -228,10 +229,11 @@ def mmtm_gating(f0, f1, wsq, bsq, w0, b0, w1, b1):
     lib = _library("mmtm_gating", "mmtm_gating_forward", 14, 10)
     with torch.cuda.device(f0.device):
         stream = torch.cuda.current_stream(f0.device).cuda_stream
-        err = lib.mmtm_gating_forward(
-            *(t.data_ptr() for t in (f0, f1, wsq, bsq, w0, b0, w1, b1, out0, out1, sq0, sq1, g0, g1)),
-            B, S, C, D, _DTYPE_CODES[f0.dtype], plan.K, plan.n, plan.nmaps, plan.smem, plan.grid, stream,
-        )
+        args = (*(t.data_ptr() for t in (f0, f1, wsq, bsq, w0, b0, w1, b1, out0, out1, sq0, sq1, g0, g1)),
+                B, S, C, D, _DTYPE_CODES[f0.dtype], plan.K, plan.n, plan.nmaps, plan.smem, plan.grid, stream)
+        # the span's markers bracket the launch alone, so they time the kernel
+        with tracing.span("gating.forward", device=f0.device):
+            err = lib.mmtm_gating_forward(*args)
     if err != 0:
         raise RuntimeError(f"mmtm_gating_forward launch failed: CUDA error {err}")
     mmtm_gating.launches += 1
@@ -383,12 +385,12 @@ def mmtm_gating_bwd(do0, do1, f0, f1, g0, g1, sq0, sq1, wsq, bsq, w0, w1,
     lib = _library("mmtm_gating_bwd", "mmtm_gating_backward", 29, 11)
     with torch.cuda.device(f0.device):
         stream = torch.cuda.current_stream(f0.device).cuda_stream
-        err = lib.mmtm_gating_backward(
-            *(ptr(t) for t in (do0, do1, f0, f1, g0, g1, sq0, sq1, wsq, bsq, w0, w1, dg0c, dg1c, dsq0c, dsq1c,
-                               df0, df1, *grads, *scratch)),
-            B, S, C, D, _DTYPE_CODES[f0.dtype], plan.K, plan.n, plan.nmaps, plan.smem, plan.grid,
-            plan.chunks, stream,
-        )
+        args = (*(ptr(t) for t in (do0, do1, f0, f1, g0, g1, sq0, sq1, wsq, bsq, w0, w1, dg0c, dg1c, dsq0c, dsq1c,
+                                   df0, df1, *grads, *scratch)),
+                B, S, C, D, _DTYPE_CODES[f0.dtype], plan.K, plan.n, plan.nmaps, plan.smem, plan.grid,
+                plan.chunks, stream)
+        with tracing.span("gating.backward", device=f0.device):
+            err = lib.mmtm_gating_backward(*args)
     if err != 0:
         raise RuntimeError(f"mmtm_gating_backward launch failed: CUDA error {err}")
     mmtm_gating_bwd.launches += 1

@@ -52,11 +52,13 @@ def _events_ms(fn):
 def device_rows(prof, steps):
     """(ms per step, kernel name) of the profiled device-side events
     (kernels, memcpy, memset), largest first.  The CPU-side aten ops carry
-    their kernels' time too and would count it twice."""
+    their kernels' time too and would count it twice, and so would the
+    device-side shadows of ``record_function`` ranges (the port's spans)."""
     rows = [
         (e.self_device_time_total / 1e3 / steps, e.key)
         for e in prof.key_averages()
         if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+        and not getattr(e, "is_user_annotation", False)
     ]
     return sorted(rows, reverse=True)
 

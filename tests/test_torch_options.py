@@ -17,7 +17,8 @@
 * ``run_api.run_entry``: train, record and flow-off in one process against
   the port's CLI in subprocesses; the bindings are cleared after a parse
   error;
-* ``Trainer.enable_profiling``: one trace, of the next train epoch only."""
+* ``Trainer.enable_profiling``: one trace, of the next train epoch only,
+  holding the port's ``train.step`` ranges."""
 
 import csv
 import functools
@@ -499,6 +500,8 @@ def test_enable_profiling_traces_the_next_epoch_only(tmp_path):
     with open(trace_dir / files[0]) as f:
         events = json.load(f)["traceEvents"]
     assert any("convolution" in e.get("name", "") for e in events)
+    # the port's spans are ranges in the trace: one train.step a step
+    assert sum(e.get("name") == "train.step" for e in events) == len(loader)
     trainer.enable_profiling(str(trace_dir))
     trainer.train_loop(loader, epochs=3, steps_per_epoch=len(loader), initial_epoch=3)
     assert sorted(os.listdir(trace_dir)) == ["train_steps_0-1.trace.json", "train_steps_4-5.trace.json"]
