@@ -7,7 +7,7 @@ Imports only the port (``greedy_multimodal_learning_tpu_torch``), never jax.
 Phases, each of which fails the run (non-zero exit) when it fails:
 
 1. the card's name and power limit; build every CUDA kernel (the gating
-   forward and backward, one ``nvcc`` each, started together) from the
+   forward and backward and the masked BatchNorm, one ``nvcc`` each, started together) from the
    sources in this checkout; TF32 off for the float32 phases;
 2. the forward kernel against its plain PyTorch version on the card at the
    shapes the model gives it (the three 224² fusion sites at B=128, plus a
@@ -35,6 +35,19 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    bit-identical, two CUDA launches a call (counted as in phase 2), with
    the time beside the bound, the plain version's and torch autograd of the
    eager gating's;
+4b. the masked train-mode BatchNorm kernels (``csrc/masked_batch_norm.cu``)
+   at every BatchNorm shape of the two training cells (2-D: B=128 at 224²,
+   64×112² to 512×7²; 3-D: B=8 at 16×112², 64×16×56² to 512×2×7²), float32
+   and bfloat16, channels-last, the masked tail (115 of 128 rows; 7 of 8),
+   with and without the ReLU, against their plain version (y, the saved
+   statistics, dx, dweight, dbias, the running statistics); two runs
+   bit-identical, one CUDA launch a call each way; each site's forward and
+   backward timed (median of 20, L2 flushed) beside its bounds and the
+   plain ops' forward and autograd backward; then one forward and backward
+   of each family's model at full width on the kernels against the plain
+   ops from one state (the launches: 40 and 60 calls each way), with the
+   plain ops against themselves and against a one-ulp nudge of the input
+   beside it;
 5. the training path at full width: the ``train`` entry with
    ``configs/training_guided.gin`` + ``MMTM_mitigate.use_pallas=True``,
    ``train.batch_size=128``, over a synthetic split of 256 train, 128
@@ -230,6 +243,7 @@ import datetime
 import hashlib
 import io
 import json
+import math
 import os
 import pickle
 import re
@@ -260,6 +274,17 @@ from greedy_multimodal_learning_tpu_torch.eval_sweep import eval_sweep_
 from greedy_multimodal_learning_tpu_torch.models import MMTM3DCNN, MMTMMVCNN, ResNet18Trunk, init_parameters
 from greedy_multimodal_learning_tpu_torch.models import layers as init_layers
 from greedy_multimodal_learning_tpu_torch.ops import build as kernel_build
+from greedy_multimodal_learning_tpu_torch.ops.masked_batch_norm import (
+    cuda_launches as mbn_cuda_launches,
+    masked_batch_norm,
+    masked_batch_norm_backward,
+    masked_batch_norm_backward_plain,
+    masked_batch_norm_plain,
+    max_blocks as mbn_max_blocks,
+    split_stats as mbn_split_stats,
+    plan_grid,
+    update_running_plain,
+)
 from greedy_multimodal_learning_tpu_torch.ops.mmtm_gating import (
     cuda_launches,
     kernel_plan,
@@ -793,6 +818,244 @@ def backward_kernel_phase():
     return report
 
 
+# ---- phase 4b helpers ------------------------------------------------------------
+
+# Every train-mode BatchNorm shape of the two training cells, with its count
+# in one tower: 2-D, ResNet-18 at 224² (B=128); 3-D, r3d-18 at 16×112²
+# (B=8).  (C, *spatial) -> BatchNorms of that shape.
+BN_SITES = {
+    "2d": (BATCH, {(64, 112, 112): 1, (64, 56, 56): 4, (128, 28, 28): 5, (256, 14, 14): 5, (512, 7, 7): 5}),
+    "3d": (CLIP_BATCH, {(64, 16, 56, 56): 5, (128, 8, 28, 28): 5, (256, 4, 14, 14): 5, (512, 2, 7, 7): 5}),
+}
+BN_VALID = {"2d": 115, "3d": 7}  # the masked tail: 2-D's padded last step (115 of 128 rows), 3-D one row padded
+BN_TOWERS = {"2d": 2, "3d": 3}
+# (rtol, atol as a fraction of the largest |value| of that output): the
+# kernels sum in another order than the plain version's torch reductions
+# (the statistics of up to 1.6 M values a channel in f32); bf16 outputs may
+# round to a neighbouring bf16 value (2^-7 relative).
+BN_TOL = {
+    torch.float32: {"y": (1e-4, 1e-5), "dx": (1e-3, 1e-4), "sums": (1e-4, 1e-5)},
+    torch.bfloat16: {"y": (8e-3, 1e-4), "dx": (8e-3, 1e-3), "sums": (1e-4, 1e-5)},
+}
+# Whole-model gradients, kernels against the plain ops from one state
+# (per tensor, the L2 of the difference over the gradient's L2): the two
+# differ by rounding, and a few ReLU inputs near zero land on opposite sides
+# (as STEP_TOL's note says); a wrong term moves a gradient by O(1).
+BN_MODEL_TOL = 1e-2
+
+
+def bn_inputs(B, shape, dtype, valid, seed):
+    """A seeded channels-last map (the models' layout), its output gradient
+    (non-zero on the padded rows too), the affine, running statistics and
+    the (B,) mask with ``valid`` rows."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    C = shape[0]
+    fmt = torch.channels_last if len(shape) == 3 else torch.channels_last_3d
+    x = (3.0 * torch.randn((B,) + shape, generator=g, device="cuda") + 1.0).to(dtype).contiguous(memory_format=fmt)
+    dy = torch.randn((B,) + shape, generator=g, device="cuda").to(dtype).contiguous(memory_format=fmt)
+    weight = torch.rand(C, generator=g, device="cuda") + 0.5
+    bias = torch.randn(C, generator=g, device="cuda")
+    running = (torch.randn(C, generator=g, device="cuda"), torch.rand(C, generator=g, device="cuda") + 0.5)
+    mask = torch.zeros(B, device="cuda")
+    mask[:valid] = 1.0
+    return x, dy, weight, bias, running, mask
+
+
+def bn_bound_ms(B, shape, dtype):
+    """(least time of a forward and backward call, each input read once and
+    each output written once: x, y; dy, x, dx, five map passes), and (the
+    time of the kernels' own nine passes: x three times and y forward; dy
+    and x twice and dx backward), both over HBM bandwidth."""
+    nbytes = B * math.prod(shape) * torch.tensor([], dtype=dtype).element_size()
+    return 1e3 * 5 * nbytes / HBM_BYTES_PER_S, 1e3 * 9 * nbytes / HBM_BYTES_PER_S
+
+
+def bn_plain_ops(x, dy, weight, bias, mask, relu):
+    """The plain torch ops the port ran before the kernels
+    (``_MaskedBatchNorm``'s CPU path, forced on the card), forward and
+    autograd's backward, on a fresh module with this affine."""
+    bn = (init_layers.BatchNorm2d if x.dim() == 4 else init_layers.BatchNorm3d)(x.shape[1]).to(x.device)
+    with torch.no_grad():
+        bn.weight.copy_(weight)
+        bn.bias.copy_(bias)
+    original = init_layers._kernel_route
+    init_layers._kernel_route = lambda t: False
+    try:
+        xr = x.detach().requires_grad_()
+        bn(xr, True, mask, relu=relu).backward(dy)
+    finally:
+        init_layers._kernel_route = original
+
+
+def bn_kernels(x, dy, weight, bias, running, mask, relu):
+    """The kernels' forward and backward (the running statistics updated)."""
+    y, stats = masked_batch_norm(x, weight, bias, *running, mask, relu=relu)
+    return (y, stats) + masked_batch_norm_backward(dy, x, weight, bias, mask, stats, relu)
+
+
+def bn_plain(x, dy, weight, bias, running, mask, relu, gate=None):
+    """The plain versions of the kernels' forward and backward.  With the
+    ReLU, the backward takes its gate from ``gate`` (the kernels' own output):
+    where the output before the ReLU lies within rounding of 0 the two
+    versions' gates may differ, and the kernels' backward must gate as their
+    forward did."""
+    y, stats = masked_batch_norm_plain(x, weight, bias, mask, 1e-5, relu)
+    update_running_plain(*running, stats, 0.1)
+    if relu:
+        dy = torch.where(gate > 0, dy, torch.zeros((), dtype=dy.dtype, device=dy.device))
+    return (y, stats) + masked_batch_norm_backward_plain(dy, x, weight, bias, mask, stats)
+
+
+def bn_site(family, B, shape, dtype, seed):
+    """One site: the kernels against their plain version (with and without
+    the ReLU), two runs bit-identical, one CUDA launch a call; timed (median
+    of 20, L2 flushed) beside the bounds and the plain ops."""
+    x, dy, weight, bias, running, mask = bn_inputs(B, shape, dtype, BN_VALID[family], seed)
+    tol = BN_TOL[dtype]
+    name = f"{family} {dtype} {(B,) + shape}"
+    err = 0.0
+    for relu in (False, True):
+        runs = []
+        for _ in range(2):
+            state = tuple(t.clone() for t in running)
+            runs.append(bn_kernels(x, dy, weight, bias, state, mask, relu) + state)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(*runs)):
+            raise AssertionError(f"{name} relu={relu}: two runs of the kernels differ")
+        state = tuple(t.clone() for t in running)
+        want = bn_plain(x, dy, weight, bias, state, mask, relu, gate=runs[0][0]) + state
+        got, want = (dict(zip(("y", "stats", "dx", "dweight", "dbias", "running_mean", "running_var"), r))
+                     for r in (runs[0], want))
+        for out in (got, want):
+            out.update({k: v for k, v in mbn_split_stats(out.pop("stats"), shape[0]).items()})
+        if not torch.equal(got.pop("n"), want.pop("n")):
+            raise AssertionError(f"{name} relu={relu}: the count differs")
+        # R (sum m (x - mean)) is float32 rounding around 0 on both sides: its
+        # limit is a fraction of sum |x - mean| <= sqrt(n s2)
+        r_atol = 1e-5 * float((float(x.shape[0]) * math.prod(shape[1:]) * want["s2"]).sqrt().max())
+        for label, b in want.items():
+            rtol, atol = tol["y" if label == "y" else "dx" if label == "dx" else "sums"]
+            atol = r_atol if label == "r" else atol * float(b.abs().max())
+            err = max(err, check_close(f"{name} relu={relu} {label}", got[label], b, rtol, atol))
+        if got["y"].stride() != x.stride() or got["dx"].stride() != x.stride():
+            raise AssertionError(f"{name}: y or dx not in the input's layout")
+    before, calls = mbn_cuda_launches(), masked_batch_norm.launches
+    _, stats = masked_batch_norm(x, weight, bias, *running, mask)
+    torch.cuda.synchronize()
+    launches = {"fwd": (mbn_cuda_launches() - before, masked_batch_norm.launches - calls)}
+    before, calls = mbn_cuda_launches(), masked_batch_norm_backward.launches
+    masked_batch_norm_backward(dy, x, weight, bias, mask, stats)
+    torch.cuda.synchronize()
+    launches["bwd"] = (mbn_cuda_launches() - before, masked_batch_norm_backward.launches - calls)
+    if launches != {"fwd": (1, 1), "bwd": (1, 1)}:
+        raise AssertionError(f"{name}: (CUDA launches, wrapper calls) a call {launches}, want (1, 1) each way")
+    bound, design = bn_bound_ms(B, shape, dtype)
+    fwd_ms = time_ms(lambda: masked_batch_norm(x, weight, bias, *running, mask), ())
+    bwd_ms = time_ms(lambda: masked_batch_norm_backward(dy, x, weight, bias, mask, stats), ())
+    return {
+        "shape": [B, *shape], "valid_rows": BN_VALID[family], "max_abs_err": err,
+        "ms": fwd_ms + bwd_ms, "fwd_ms": fwd_ms, "bwd_ms": bwd_ms,
+        "relu_ms": time_ms(lambda: bn_kernels(x, dy, weight, bias, running, mask, True), ()),
+        "plain_ms": time_ms(bn_plain_ops, (x, dy, weight, bias, mask, False)),
+        "plain_relu_ms": time_ms(bn_plain_ops, (x, dy, weight, bias, mask, True)),
+        "bound_ms": bound, "bound_by": "bytes", "nine_pass_ms": design,
+        "blocks": {d: plan_grid(True, B, shape[0], math.prod(shape[1:]), 16 // x.element_size(),
+                                mbn_max_blocks(d == "bwd", dtype, 16 // x.element_size(), True))
+                   for d in ("fwd", "bwd")},
+    }
+
+
+def bn_model_calls(family):
+    """One train-mode forward and backward of the family's model at full
+    width (2-D: B=128, 224²; 3-D: B=8, 16×112²), float32, with padded rows:
+    (BatchNorm forward calls, backward calls, CUDA launches) on the kernels,
+    and the largest gap over every parameter gradient and running statistic,
+    kernels against the plain ops from one state, and beside it the plain
+    ops against themselves (cuDNN's weight gradients need not repeat) and
+    against themselves on the input nudged one ulp (rounding's reach).  A
+    tensor's gap is the L2 of the difference over the larger of its own and
+    the median tensor's L2 (as the benchmark's ``grad_gap``: a bias whose
+    gradient sums to near 0 would otherwise magnify rounding)."""
+    B = BN_SITES[family][0]
+    g = torch.Generator(device="cuda").manual_seed(17)
+    if family == "2d":
+        base = init_model(MMTMMVCNN(nclasses=40, use_pallas=True), 3, "cpu")
+        x = torch.rand((B, 2, 224, 224, 3), generator=g, device="cuda")
+    else:
+        base = init_model(MMTM3DCNN(nclasses=25), 3, "cpu")
+        x = torch.rand((B, 3, CLIP_FRAMES, CLIP_SIZE, CLIP_SIZE, 3), generator=g, device="cuda")
+    mask = torch.ones(B, device="cuda")
+    mask[BN_VALID[family]:] = 0.0
+    grads, counts = {}, None
+    for route in ("kernels", "plain", "plain_again", "plain_nudged"):
+        model = copy.deepcopy(base).to(device="cuda", memory_format=base.memory_format)
+        original = init_layers._kernel_route
+        init_layers._kernel_route = lambda t: route == "kernels" and t.is_cuda
+        try:
+            calls = (masked_batch_norm.launches, masked_batch_norm_backward.launches, mbn_cuda_launches())
+            # the nudge: every input one float32 ulp up, a perturbation of the size of rounding
+            xr = torch.nextafter(x, torch.full_like(x, 2.0)) if route == "plain_nudged" else x
+            _, logits, _, _ = model(xr, train=True, valid_mask=mask)
+            sum(l.float().square().mean() for l in logits).backward()
+            torch.cuda.synchronize()
+            if route == "kernels":
+                counts = (masked_batch_norm.launches - calls[0], masked_batch_norm_backward.launches - calls[1],
+                          mbn_cuda_launches() - calls[2])
+        finally:
+            init_layers._kernel_route = original
+        grads[route] = {**{k: p.grad.float() for k, p in model.named_parameters() if p.grad is not None},
+                        **{k: b.float() for k, b in model.named_buffers() if "running" in k}}
+        del model
+    median = float(np.median([float(v.norm()) for v in grads["plain"].values()]))
+    worst = {}
+    for route in ("kernels", "plain_again", "plain_nudged"):
+        worst[route] = (0.0, None)
+        for k, want in grads["plain"].items():
+            gap = float((grads[route][k] - want).norm()) / max(float(want.norm()), median, 1e-30)
+            if gap > BN_MODEL_TOL and route == "kernels":
+                raise AssertionError(f"{family} model: {k} {route} vs plain ops gap {gap:.3e} beyond {BN_MODEL_TOL}")
+            worst[route] = max(worst[route], (gap, k))
+    del grads, base
+    torch.cuda.empty_cache()
+    return counts, worst
+
+
+def batch_norm_phase():
+    """Phase 4b: the masked BatchNorm kernels at every BatchNorm shape of
+    the two training cells; one model step of each family on the kernels
+    against the plain ops, with its launch counts."""
+    report = {}
+    for family, (B, sites) in BN_SITES.items():
+        report[family] = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            per_site = {}
+            for seed, (shape, n) in enumerate(sites.items()):
+                per_site["x".join(map(str, shape))] = site = bn_site(family, B, shape, dtype, seed)
+                site["per_tower"] = n
+                log(f"[bn] {family} {str(dtype)[6:]} {json.dumps(site)}")
+            keys = ("ms", "fwd_ms", "bwd_ms", "relu_ms", "plain_ms", "plain_relu_ms", "bound_ms", "nine_pass_ms")
+            # a step: every BatchNorm of every tower
+            step = {k: BN_TOWERS[family] * sum(s[k] * s["per_tower"] for s in per_site.values()) for k in keys}
+            step["max_abs_err"] = max(s["max_abs_err"] for s in per_site.values())
+            report[family][str(dtype)[6:]] = {"sites": per_site, "step": step}
+            log(f"[bn] {family} {str(dtype)[6:]} a step ({BN_TOWERS[family]} towers): " + json.dumps(step))
+        counts, worst = bn_model_calls(family)
+        want = BN_TOWERS[family] * sum(sites.values())
+        if counts != (want, want, 2 * want):
+            raise AssertionError(f"{family} model step: (forward calls, backward calls, CUDA launches) {counts}, "
+                                 f"want ({want}, {want}, {2 * want})")
+        log(f"[bn] {family} model fwd+bwd (f32, {BN_VALID[family]} of {B} rows valid): {counts[0]} forward and "
+            f"{counts[1]} backward calls, {counts[2]} CUDA launches; largest gap over gradients and running "
+            f"statistics: kernels vs plain ops {worst['kernels'][0]:.3e} ({worst['kernels'][1]}), plain ops vs "
+            f"themselves {worst['plain_again'][0]:.3e} ({worst['plain_again'][1]}), plain ops on the input nudged "
+            f"one ulp {worst['plain_nudged'][0]:.3e} ({worst['plain_nudged'][1]})")
+        report[family].update({"calls_per_step": counts[0], "backward_calls_per_step": counts[1],
+                               "cuda_launches_per_step": counts[2], "model_gap": worst["kernels"][0],
+                               "model_gap_plain_again": worst["plain_again"][0],
+                               "model_gap_plain_nudged": worst["plain_nudged"][0]})
+    return report
+
+
 # ---- phase 5 helpers -------------------------------------------------------------
 
 
@@ -822,16 +1085,22 @@ def counted(entry, configs, bindings, save_path, resident):
 def run_train(tag, configs, bindings, save_path):
     """One counted run of the ``train`` entry; checks the counts, the curated
     steps, the losses and the artifacts."""
+    bn_before = (masked_batch_norm.launches, masked_batch_norm_backward.launches)
     trainer, fwd, bwd, wall = counted(train, configs, bindings, save_path, 3)
+    bn = (masked_batch_norm.launches - bn_before[0], masked_batch_norm_backward.launches - bn_before[1])
     with open(os.path.join(save_path, "history.csv")) as f:
         rows = list(csv.DictReader(f))
     eval_batches = len(rows) * (-(-N_VAL // BATCH) + -(-N_TRAIN_TEST // BATCH))
     want_fwd, want_bwd = 3 * (trainer.step + eval_batches), 3 * trainer.step
+    want_bn = BN_TOWERS["2d"] * sum(BN_SITES["2d"][1].values()) * trainer.step  # eval batches take none
     log(f"[train {tag}] {len(rows)} epochs, {trainer.step} steps, {trainer.curated_steps} curated, {wall:.1f}s | "
-        f"forward launches {fwd} (want {want_fwd}), backward launches {bwd} (want {want_bwd})")
+        f"forward launches {fwd} (want {want_fwd}), backward launches {bwd} (want {want_bwd}) | masked "
+        f"BatchNorm calls (forward, backward) {bn} (want {want_bn} each)")
     if (fwd, bwd) != (want_fwd, want_bwd) or trainer.step != 2 * (N_TRAIN // BATCH):
         raise AssertionError(f"{tag}: launches (forward, backward) = {(fwd, bwd)}, want {(want_fwd, want_bwd)}; "
                              f"{trainer.step} steps")
+    if bn != (want_bn, want_bn):
+        raise AssertionError(f"{tag}: masked BatchNorm calls (forward, backward) = {bn}, want {want_bn} each")
     if trainer.curated_steps < 1:
         raise AssertionError(f"{tag}: no step ran with curation on")
     for r in rows:
@@ -844,8 +1113,8 @@ def run_train(tag, configs, bindings, save_path):
             raise AssertionError(f"{tag}: {name} was not written")
     rates = [float(r["train_samples_per_sec"]) for r in rows]
     log(f"[train {tag}] train samples/s per epoch {rates}; losses {[float(r['loss']) for r in rows]}")
-    return {"fwd_launches": fwd, "bwd_launches": bwd, "steps": trainer.step, "curated_steps": trainer.curated_steps,
-            "train_samples_per_s": rates, "wall_s": wall}
+    return {"fwd_launches": fwd, "bwd_launches": bwd, "bn_launches": bn[0], "bn_bwd_launches": bn[1],
+            "steps": trainer.step, "curated_steps": trainer.curated_steps, "train_samples_per_s": rates, "wall_s": wall}
 
 
 TRAIN_BINDINGS = [
@@ -3105,7 +3374,7 @@ def main() -> int:
     log(f"[card] {smi} | torch {torch.__version__} CUDA {torch.version.cuda} | {torch.cuda.get_device_name(0)}")
 
     t0 = time.time()
-    libs = kernel_build.build(["mmtm_gating", "mmtm_gating_bwd"])
+    libs = kernel_build.build(["mmtm_gating", "mmtm_gating_bwd", "masked_batch_norm"])
     log(f"[build] {time.time() - t0:.1f}s: " + ", ".join(str(p.relative_to(REPO)) for p in libs.values()))
     for p in libs.values():
         log_path = p.with_suffix(".so.log")
@@ -3132,6 +3401,7 @@ def main() -> int:
             os.remove(CKPT)
     log("[serving] " + json.dumps(serving))
     bwd_timing = phase("4 backward kernel", backward_kernel_phase)
+    batch_norm = phase("4b masked BatchNorm kernels", batch_norm_phase)
     try:
         training = phase("5 training", training_phase)
         log("[train] " + json.dumps(training))
@@ -3304,6 +3574,28 @@ def main() -> int:
         "library_ms": None,
         "bf16": {k: bbf16[k] for k in ("ms", "plain_ms", "eager_autograd_ms", "bound_ms")},
         "sites": {str(dt)[6:]: t["sites"] for dt, t in bwd_timing.items()},
+    }, {
+        "name": "masked_batch_norm",
+        "route": "cuda",
+        "source": "greedy_multimodal_learning_tpu_torch/csrc/masked_batch_norm.cu",
+        "replaces": None,  # the JAX package's TorchBatchNorm is plain jnp ops (models/layers.py:83-120)
+        "replaces_kernel": None,
+        "cuda_launches_per_call": 1,  # forward and backward each, outside a data-parallel world (phase 4b)
+        # forward calls (one a train-mode BatchNorm) of the main path: phase 5's f32 and bf16 runs, and a model
+        # step of each family (phase 4b: 40 in 2-D, 60 in 3-D)
+        "launches": training["f32"]["bn_launches"],
+        "launches_bf16": training["bf16"]["bn_launches"],
+        "backward_launches": training["f32"]["bn_bwd_launches"],
+        **{f"launches_step_{f}": batch_norm[f]["calls_per_step"] for f in BN_SITES},
+        **{f"model_gap_{f}": batch_norm[f]["model_gap"] for f in BN_SITES},
+        # float32, the configurations' dtype: a step's every BatchNorm (both towers, 2-D), forward + backward
+        **{k: batch_norm["2d"]["float32"]["step"][k] for k in ("ms", "fwd_ms", "bwd_ms", "plain_ms", "bound_ms",
+                                                                "nine_pass_ms", "max_abs_err")},
+        "bound_by": "bytes",
+        "library_ms": None,
+        "3d": batch_norm["3d"]["float32"]["step"],
+        "bf16": {f: batch_norm[f]["bfloat16"]["step"] for f in BN_SITES},
+        "sites": {f: {d: batch_norm[f][d]["sites"] for d in ("float32", "bfloat16")} for f in BN_SITES},
     }]
     log("[step] " + json.dumps({"l2_diff_over_update": step_err, "samples_per_s": rates}))
     log(f"[time] {time.time() - t_start:.1f}s in all; by phase {json.dumps(seconds)}")

@@ -37,6 +37,7 @@ import torch.utils.checkpoint
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.masked_batch_norm import MaskedBatchNormFunction
 from ..parallel import mesh as parallel
 from ..parallel import tensor as tensor_parallel
 from ..utils import prng
@@ -114,11 +115,20 @@ def rematerialize(block, *args):
     return torch.utils.checkpoint.checkpoint(block, *args, use_reentrant=False, context_fn=_remat_contexts)
 
 
+def _kernel_route(x) -> bool:
+    """Whether the train-mode BatchNorm of ``x`` runs
+    :class:`~..ops.masked_batch_norm.MaskedBatchNormFunction` (CUDA tensors:
+    the kernels) rather than the plain ops (CPU tensors)."""
+    return x.is_cuda
+
+
 class _MaskedBatchNorm:
     """``TorchBatchNorm``'s semantics (``layers.py:83-120``) for a torch
     BatchNorm (eps 1e-5, momentum 0.1) on (B, C, *spatial) maps; the
     explicit ``train`` argument, not ``self.training``, selects the
-    statistics, as in the JAX package.
+    statistics, as in the JAX package.  ``relu`` applies the ReLU that
+    follows the BatchNorm in the same call (the CUDA kernels take it into
+    their passes).
 
     * ``train=False``: the running statistics, in one ``F.batch_norm`` pass
       (float32 statistics and affine, float32 normalize, the result in the
@@ -127,13 +137,23 @@ class _MaskedBatchNorm:
       non-zero (all rows without a mask) and every spatial position, in
       float32; the normalize uses the biased variance, the running variance
       takes the unbiased one ``var * n / max(n - 1, 1)``.  ``F.batch_norm``
-      cannot mask, so this is plain torch ops.  A :func:`rematerialize` recompute
-      does not update the running statistics a second time.  Under data
-      parallelism both passes' sums, and the count, are the data group's."""
+      cannot mask: on CUDA tensors the hand-written kernels of
+      :mod:`..ops.masked_batch_norm` run it (two levels of sums, normalize,
+      and a backward derived from this graph), on CPU tensors the plain torch
+      ops below.  A :func:`rematerialize` recompute does not update the
+      running statistics a second time.  Under data parallelism both passes'
+      sums, and the count, are the data group's."""
 
-    def forward(self, x, train: bool = False, mask=None):
+    def forward(self, x, train: bool = False, mask=None, relu: bool = False):
         if not train:
-            return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias, False, 0.0, self.eps)
+            y = F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias, False, 0.0, self.eps)
+            # in place: x, y and a third map would be alive at once (F.batch_norm's backward reads x, not y)
+            return torch.relu_(y) if relu else y
+        world = parallel.active()
+        if _kernel_route(x):
+            return MaskedBatchNormFunction.apply(
+                x, self.weight, self.bias, self.running_mean, self.running_var, mask, self.momentum, self.eps,
+                not getattr(_RECOMPUTE, "active", False), relu, world)
         xf = x.float()
         dims = (0,) + tuple(range(2, x.dim()))
         per_channel = (1, -1) + (1,) * (x.dim() - 2)
@@ -141,7 +161,6 @@ class _MaskedBatchNorm:
         m = m.view((-1,) + (1,) * (x.dim() - 1))
         n = m.sum() * math.prod(x.shape[2:])
         total = (xf * m).sum(dim=dims)
-        world = parallel.active()
         if world is not None:
             total, n = parallel.differentiable_sum(torch.cat([total, n[None]]), world.data_group).split(
                 [total.numel(), 1])
@@ -155,8 +174,8 @@ class _MaskedBatchNorm:
         if not getattr(_RECOMPUTE, "active", False):
             self._update_running(mean, var, n)
         inv = torch.rsqrt(var + self.eps) * self.weight
-        y = centered * inv.view(per_channel) + self.bias.view(per_channel)
-        return y.to(x.dtype)
+        y = (centered * inv.view(per_channel) + self.bias.view(per_channel)).to(x.dtype)
+        return torch.relu(y) if relu else y
 
     @torch.no_grad()
     def _update_running(self, mean, var, n):

@@ -43,7 +43,7 @@ class BasicBlock(nn.Module):
         if self.downsample is not None:
             conv, bn = self.downsample
             identity = bn(conv(x), train, mask)
-        out = torch.relu(self.bn1(self.conv1(x), train, mask))
+        out = self.bn1(self.conv1(x), train, mask, relu=True)
         out = self.bn2(self.conv2(out), train, mask)
         return torch.relu(out + identity)
 
@@ -71,7 +71,7 @@ class ResNet18Trunk(nn.Module):
     def stem(self, x, train: bool = False, mask=None):
         if self.stem_s2d and (x.shape[-2] % 2 or x.shape[-1] % 2):
             raise ValueError(f"space-to-depth stem needs even spatial dims, got {tuple(x.shape[-2:])}")
-        x = torch.relu(self.bn1(self.conv1(x), train, mask))
+        x = self.bn1(self.conv1(x), train, mask, relu=True)
         return F.max_pool2d(x, 3, 2, 1)
 
     def layer(self, i: int, x, train: bool = False, mask=None):

@@ -14,7 +14,6 @@ backward pass, as the 2-D trunk's (``resnet3d.py:73``).
 
 from __future__ import annotations
 
-import torch
 from torch import nn
 
 from .layers import BatchNorm3d, Conv3d, Linear
@@ -56,7 +55,7 @@ class ResNet3D18Trunk(nn.Module):
         self.fc = Linear(cin, nclasses)
 
     def stem(self, x, train: bool = False, mask=None):
-        return torch.relu(self.bn1(self.conv1(x), train, mask))
+        return self.bn1(self.conv1(x), train, mask, relu=True)
 
     layer = ResNet18Trunk.layer
     head = ResNet18Trunk.head

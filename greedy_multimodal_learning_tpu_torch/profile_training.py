@@ -22,8 +22,10 @@ world 1, world 1, plain.  Each line has:
   device time of the kernels of ``csrc/mmtm_gating.cu`` and
   ``csrc/mmtm_gating_bwd.cu``;
 * ``elementwise_reduce_ms_per_step``: device time of PyTorch's generic
-  elementwise and reduction kernels (mostly the masked train BatchNorm,
-  which is plain torch ops);
+  elementwise and reduction kernels (the residual adds and the ReLUs
+  after them, SGD, the controller);
+* ``batch_norm_ms_per_step``: device time of the masked train-mode
+  BatchNorm's kernels (``csrc/masked_batch_norm.cu``);
 * ``convolution_ms_per_step``: device time of the kernels whose names mark
   them as cuDNN's convolutions (forward, data and weight gradients);
 * ``kernels``: device time per step of the top kernels by name, from
@@ -56,6 +58,7 @@ from .profile_serving import device_rows, smi_line
 GATING_FORWARD = r"\bgating_fwd_kernel\b"
 GATING_BACKWARD = r"\b(gating_bwd_map_kernel|weight_grad_kernel)\b"
 ELEMENTWISE_REDUCE = r"elementwise_kernel|reduce_kernel"
+BATCH_NORM = r"\bmbn_(forward|backward)_kernel\b"
 NCCL = r"nccl"
 CONVOLUTION = r"conv|xmma|implicit_gemm|cudnn|fprop|dgrad|wgrad"
 
@@ -137,6 +140,7 @@ def _profile(dtype, use_pallas, batch, steps, family, world):
         "gating_forward_ms_per_step": matching(GATING_FORWARD),
         "gating_backward_ms_per_step": matching(GATING_BACKWARD),
         "elementwise_reduce_ms_per_step": matching(ELEMENTWISE_REDUCE),
+        "batch_norm_ms_per_step": matching(BATCH_NORM),
         "convolution_ms_per_step": matching(CONVOLUTION),
         "world": world.size if world is not None else None,
         "collectives_per_step": collectives,
